@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The path is the paper pipeline of `repro_torch` (R-MAT graph → vertex-program
-trace → partition → traffic → stacked placement search → stacked analytic
-simulator) on the Table-2 workload `amazon` at its published size (304,000
-nodes, 4,300,000 edges), on the `paper` grid's 12 configurations for it
-(bfs/sssp/pagerank × mesh2d/fbutterfly × proposed vs randomized baseline, 16
-engines).  Phases, one JSON line each:
+Two paths, each driven with its kernel's launch count set to 0 just before
+and read just after:
 
-  probe    the card and the toolchain
-  build    `nvcc` on `src/repro_torch/csrc/ell_spmm.cu`
-  kernels  the CUDA kernel against its plain PyTorch version (test shapes,
-           every real ELL bucket of the full-size graph, two runs bit-equal)
-           and its time beside the byte bound and `torch.sparse.mm`
-  engine   `run_traced` for the three algorithms against host references
-  sweep    `run_sweep` with the torch backend against the numpy backend
+* the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
+  partition → traffic → stacked placement search → stacked analytic
+  simulator) on the Table-2 workload `amazon` at its published size (304,000
+  nodes, 4,300,000 edges), on the `paper` grid's 12 configurations for it
+  (bfs/sssp/pagerank × mesh2d/fbutterfly × proposed vs randomized baseline, 16
+  engines); its kernel is `ell_spmm`;
+* LM serving: `repro_torch.launch.serve.build_engine` on llama3.2-3b at its
+  published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
+  vocab 128256; random weights from a seeded generator on the card), 4 slots,
+  max_seq 4096, float32 KV cache, 8 requests of 512-3072 prompt tokens and 32
+  new tokens each; its kernel is `flash_attention` (every prefill layer).
+
+Phases, one JSON line each:
+
+  probe      the card and the toolchain
+  build      `nvcc` on every source of `src/repro_torch/csrc/`, all at once
+  kernels    `ell_spmm` against its plain PyTorch version (test shapes, every
+             real ELL bucket of the full-size graph, two runs bit-equal) and
+             its time beside the byte bound and `torch.sparse.mm`
+  engine     `run_traced` for the three algorithms against host references
+  sweep      `run_sweep` with the torch backend against the numpy backend
+  attention  `flash_attention` against its plain version (test shapes, f32
+             and bf16, and the serve path's shapes; two runs bit-equal) and
+             its time beside the operation bound and
+             `scaled_dot_product_attention`
+  serve      the serve path, its throughput, and full-width logit checks
 
 then the contract lines: one `{"kernels": [...]}` object, the card's name and
 power limit as `nvidia-smi` prints them, and last
@@ -43,9 +58,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the tensor
+# cores, dense bf16 tensor-core rate
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 
 TEST_SHAPES = [(50, 16, 8), (100, 7, 3), (30, 4, 16), (64, 32, 1)]  # (N, R, W)
 TEST_DIMS = [1, 16, 64, 128, 256]
@@ -53,6 +70,26 @@ F32_TOL = dict(rtol=2e-3, atol=2e-5)  # fp32 accumulation in another order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of an fp32 sum
 KERNEL_SOURCE = "src/repro_torch/csrc/ell_spmm.cu"
 KERNEL_REPLACES = "src/repro/kernels/segment_spmm/kernel.py:51"
+
+# flash attention: tests/test_kernels.py:24-29 (B, Sq, Skv, Hq, Hkv, dh), and
+# the serve path's q (1, S, 24, 128), k/v (1, S, 8, 128) bf16 at these S
+ATTN_TEST_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32), (2, 96, 160, 4, 4, 64),
+                    (1, 200, 200, 6, 2, 128)]
+ATTN_PATH_S = (512, 2048, 3072)
+ATTN_TIMED_S = 2048
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
+
+# serve: llama3.2-3b at its published width and depth
+SERVE_ARCH = "llama3.2-3b"
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
+SERVE_PROMPT = (512, 3073)  # prompt lengths drawn from [512, 3072]
+MODEL_TOL = dict(rtol=2e-3, atol=2e-3)  # float32 logits, as tests/test_models.py
+# bf16 logits of 28 layers: a rounding flip in one layer's activations cascades,
+# so the one-op bf16 tolerance does not apply to them; instead the kernel's route
+# (and decode) must be no less accurate against the float32 model than the
+# plain route is (mean abs error, within this factor)
+BF16_ROUTE_FACTOR = 1.5
 
 
 def say(phase: str, **fields) -> None:
@@ -373,6 +410,299 @@ def phase_sweep(device: torch.device, grid, graph, smi: str | None) -> tuple[dic
     return out, launches
 
 
+# --------------------------------------------------------------------------- attention
+
+
+def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
+    """Least time for one `flash_attention` call on these inputs: q, k, v read
+    once and the output written once over the memory rate, against the
+    multiply-adds of QKᵀ and P·V on the score pairs the mask keeps over the
+    tensor-core (bf16) or CUDA-core (f32) rate."""
+    b, sq, hq, dh = q.shape
+    skv = k.shape[1]
+    if causal:  # query row i keeps keys 0 .. i + q_offset
+        pairs = sum(min(skv, max(0, i + q_offset + 1)) for i in range(sq))
+    else:
+        pairs = sq * skv
+    flops = 4.0 * b * hq * dh * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops = flops / (H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_attention(device: torch.device, timer: Timer) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(1)
+
+    def qkv(b, sq, skv, hq, hkv, dh, dtype):
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device).to(dtype)
+                for s in ((b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh))]
+
+    def held(q, k, v, causal, off, tol, what):
+        got = flash_attention(q, k, v, causal=causal, q_offset=off)
+        again = flash_attention(q, k, v, causal=causal, q_offset=off)
+        want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        check(got.dtype == q.dtype and got.shape == q.shape, f"shape/dtype at {what}")
+        check(torch.equal(got, again), f"two runs differ at {what}")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), **tol), f"kernel vs plain version at {what}: max abs err {err}")
+        return err
+
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    cases = 0
+    for b, sq, skv, hq, hkv, dh in ATTN_TEST_SHAPES:
+        for causal in (True, False):
+            for dtype, tag, tol in ((torch.float32, "f32", F32_TOL), (torch.bfloat16, "bf16", BF16_TOL)):
+                q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
+                off = skv - sq if causal else 0
+                err = held(q, k, v, causal, off, tol, (b, sq, skv, hq, hkv, dh, causal, tag))
+                max_err[tag] = max(max_err[tag], err)
+                cases += 1
+
+    path = []
+    timed = None
+    for s in ATTN_PATH_S:
+        q, k, v = qkv(1, s, s, 24, 8, 128, torch.bfloat16)
+        err = held(q, k, v, True, 0, BF16_TOL, ("path", s))
+        bound, by = attention_bound_ms(q, k, True, 0)
+        path.append({"S": s, "max_abs_err": err, "ms": timer.device_ms(lambda: flash_attention(q, k, v, causal=True)),
+                     "bound_ms": bound, "bound_by": by})
+        if s == ATTN_TIMED_S:
+            timed = (q, k, v)
+    path_err = max(p["max_abs_err"] for p in path)
+
+    q, k, v = timed
+    refused = False
+    before = flash_attention.launches
+    try:
+        flash_attention(q, k, v, kv_valid_len=torch.full((1,), 100, device=device))
+    except NotImplementedError:
+        refused = True
+    check(refused and flash_attention.launches == before, "kv_valid_len on the kernel's route must raise")
+
+    ms = timer.device_ms(lambda: flash_attention(q, k, v, causal=True))
+    call_ms = timer.call_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=3, reps=5)
+    # yardstick, used nowhere in the port: one library call in its own (B, H, S, dh) layout
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    ours = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    lib_err = float((lib.float() - ours.float()).abs().max())
+    check(torch.allclose(lib.float(), ours.float(), **BF16_TOL), f"kernel vs scaled_dot_product_attention: {lib_err}")
+    library_ms = timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    bound_ms, bound_by = attention_bound_ms(q, k, True, 0)
+    out = {
+        "test_cases": cases, "max_abs_err_f32": max_err["f32"], "max_abs_err_bf16": max_err["bf16"],
+        "tolerance_f32": F32_TOL, "tolerance_bf16": BF16_TOL, "bit_equal_two_runs": True,
+        "kv_valid_len_refused": refused, "path": path, "path_max_abs_err": path_err,
+        "timed_shape": {"q": list(q.shape), "k": list(k.shape), "dtype": "bfloat16", "causal": True},
+        "kernel_ms": ms, "kernel_call_ms": call_ms, "ref_ms": plain_ms, "library_ms": library_ms,
+        "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+        "achieved_tflops": 4.0 * 24 * 128 * ATTN_TIMED_S * (ATTN_TIMED_S + 1) / 2 / (ms * 1e-3) / 1e12,
+        "timing": "warm medians with CUDA events. kernel_ms and path[].ms: device time, replayed from a "
+                  "CUDA graph; kernel_call_ms, ref_ms, library_ms: calls enqueued back to back from Python. "
+                  "library: scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies",
+    }
+    say("attention", **out)
+    return out
+
+
+# --------------------------------------------------------------------------- serve
+
+
+def profile_window(fn) -> dict:
+    """Device time by kernel over one call of `fn` (`torch.profiler`), summed
+    over device rows only, beside the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, name, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key), reverse=True)
+    total = sum(r[0] for r in rows) / 1e3
+    attn = sum(r[0] for r in rows if "attn_bf16_mma" in r[1]) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": total, "device_busy_share": total / (wall * 1e3),
+            "flash_attention_ms": attn,
+            "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
+
+
+def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict, int]:
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import gqa_attention
+    from repro_torch.serve.engine import Request
+
+    cfg = get_arch(SERVE_ARCH).model_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = tfm.init_params(cfg, seed, device=device)  # a seeded torch.Generator on the card
+    params = tfm.cast_params(params32, cfg)  # the weights as served: one bf16 copy
+    engine = build_engine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shape = (cfg.n_layers, SERVE_SLOTS, SERVE_MAX_SEQ, cfg.n_kv_heads, cfg.head_dim)
+    check(engine.cache["k"].dtype == torch.float32 and tuple(engine.cache["k"].shape) == shape, "the KV cache")
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+
+    # first use of each operator (cuBLAS handles, kernel loads) before anything is timed
+    prefill_one, decode = engine.prefill_one, engine.decode
+    engine.cache, _ = prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
+    _, engine.cache = decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
+                             torch.zeros(SERVE_SLOTS, dtype=torch.long))
+    torch.cuda.synchronize()
+
+    st = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0, "decode_tokens": 0, "decode_steps": 0,
+          "finite": True}
+
+    def timed_prefill(cache, slot, tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache, logits = prefill_one(cache, slot, tokens)
+        torch.cuda.synchronize()
+        st["prefill_s"] += time.perf_counter() - t
+        st["prefill_tokens"] += int(tokens.shape[1])
+        st["finite"] &= bool(torch.isfinite(logits).all())
+        return cache, logits
+
+    def timed_decode(cache, tokens, pos):
+        live = sum(a is not None for a in engine.active)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = decode(cache, tokens, pos)
+        torch.cuda.synchronize()
+        st["decode_s"] += time.perf_counter() - t
+        st["decode_tokens"] += live
+        st["decode_steps"] += 1
+        st["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    engine.prefill_one, engine.decode = timed_prefill, timed_decode
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW))
+    flash_attention.launches = 0  # the serve path's own count starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(len(done) == SERVE_REQUESTS, f"{len(done)} of {SERVE_REQUESTS} requests drained")
+    for r in done:
+        check(len(r.out_tokens) == SERVE_NEW or r.out_tokens[-1] == engine.eos_id,
+              f"request {r.uid}: {len(r.out_tokens)} tokens")
+    check(launches == cfg.n_layers * SERVE_REQUESTS, f"flash_attention launched {launches} times, "
+          f"want {cfg.n_layers} a prefill × {SERVE_REQUESTS}")
+    check(st["finite"], "non-finite logits")
+
+    # full-width logit checks on request 0's prompt, each in a one-slot cache of its own
+    toks = torch.from_numpy(prompts[0][None, :].astype(np.int64)).to(device)
+    n = toks.shape[1]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def last(c, prm, impl="auto", decode_last=False):
+        c = dataclasses.replace(c, attn_impl=impl)
+        cache = tfm.init_kv_cache(c, 1, n, dtype=torch.float32, device=device)
+        if not decode_last:
+            return tfm.prefill(prm, toks, cache, c)[0].float()
+        tfm.prefill(prm, toks[:, :-1], cache, c)
+        return tfm.decode_step_batched_pos(prm, cache, torch.full((1,), n - 1, device=device), toks[:, -1:], c)[0].float()
+
+    truth = last(cfg32, params32, "ref")  # float32 activations, plain attention
+    k32, d32 = last(cfg32, params32), last(cfg32, params32, decode_last=True)
+    kb, rb, db = last(cfg, params), last(cfg, params, "ref"), last(cfg, params, decode_last=True)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a - b).abs().max()), float((a - b).abs().mean())
+
+    checks = {
+        "prompt_tokens": n, "truth": "float32 activations, impl='ref'", "truth_std": float(truth.std()),
+        "f32_kernel_vs_ref": err(k32, truth), "f32_decode_vs_prefill": err(d32, k32),
+        "bf16_kernel_vs_truth": err(kb, truth), "bf16_ref_vs_truth": err(rb, truth),
+        "bf16_decode_vs_truth": err(db, truth), "bf16_kernel_vs_ref": err(kb, rb),
+        "bf16_kernel_vs_ref_within_one_op_tolerance": float(
+            torch.isclose(kb, rb, **BF16_TOL).float().mean()),
+        "argmax_equal_kernel_ref_truth": [int(kb.argmax()), int(rb.argmax()), int(truth.argmax())],
+        "first_token_engine": done[[r.uid for r in done].index(0)].out_tokens[0],
+        "tolerance_f32": MODEL_TOL, "bf16_route_factor": BF16_ROUTE_FACTOR, "errors": "[max abs, mean abs]",
+    }
+    check(torch.allclose(k32, truth, **MODEL_TOL), f"f32 logits, kernel vs ref: {checks['f32_kernel_vs_ref']}")
+    check(torch.allclose(d32, k32, **MODEL_TOL), f"f32 logits, decode vs prefill: {checks['f32_decode_vs_prefill']}")
+    floor = checks["bf16_ref_vs_truth"][1]
+    check(checks["bf16_kernel_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
+          f"bf16 logits, kernel route less accurate than the plain route: {checks}")
+    check(checks["bf16_decode_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
+          f"bf16 logits, decode less accurate than the plain prefill: {checks}")
+    del params32
+
+    # where the time goes: one prefill (request 0's prompt, slot 0) and 8 decode steps
+    pos = torch.from_numpy(engine.pos.astype(np.int64))
+    prof_prefill = profile_window(lambda: prefill_one(engine.cache, 0, toks.cpu()))
+    step_tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long)
+
+    def eight_steps():
+        for _ in range(8):
+            decode(engine.cache, step_tokens, pos)
+
+    prof_decode = profile_window(eight_steps)
+    # decode attention alone at the engine's shapes: 4 slots over the float32 cache
+    qd = torch.randn((SERVE_SLOTS, 1, cfg.n_heads, cfg.head_dim), device=device).bfloat16()
+    valid = torch.full((SERVE_SLOTS,), 2048, device=device)
+    ck, cv = engine.cache["k"][0], engine.cache["v"][0]
+    timer = Timer()
+    decode_attn_ms = timer.call_ms(lambda: gqa_attention(qd, ck, cv, causal=False, kv_valid_len=valid))
+
+    out = {
+        "arch": SERVE_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "params": cfg.num_params, "activations": "bfloat16", "cuts": [],
+        "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ, "kv_cache": "float32",
+        "requests": SERVE_REQUESTS, "prompt_lengths": [int(x) for x in lengths], "max_new_tokens": SERVE_NEW,
+        "new_tokens": [len(r.out_tokens) for r in sorted(done, key=lambda r: r.uid)],
+        "setup_s": setup_s, "wall_s": wall_s,
+        "prefill_s": st["prefill_s"], "prefill_tokens": st["prefill_tokens"],
+        "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+        "decode_s": st["decode_s"], "decode_steps": st["decode_steps"], "decode_tokens": st["decode_tokens"],
+        "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+        "flash_attention_launches": launches, "max_memory_allocated_gb": peak_gb,
+        "logit_checks": checks,
+        "profile_prefill": prof_prefill, "profile_8_decode_steps": prof_decode,
+        "decode_attention_layer_ms": decode_attn_ms,
+        "timing": "host clock around each prefill / decode call, synchronised on both sides; "
+                  "profiles with torch.profiler after the drain; decode_attention_layer_ms: one layer's "
+                  "gqa_attention at the engine's decode shapes, calls back to back, CUDA events",
+        "card": smi,
+    }
+    say("serve", **out)
+    return out, launches
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -385,11 +715,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.device import probe
     from repro_torch.experiments.grid import GRIDS
     from repro_torch.graph.generators import table2_workloads
-
-    from repro_torch.kernels.segment_spmm import kernel
+    from repro_torch.kernels.build import build_library
 
     device = torch.device("cuda")
     scale = 1.0
@@ -398,8 +729,11 @@ def main() -> int:
     say("probe", **info)
 
     t0 = time.perf_counter()
-    lib = kernel.build()
-    say("build", source=KERNEL_SOURCE, library=lib.name, seconds=time.perf_counter() - t0)
+    sources = {"ell_spmm": KERNEL_SOURCE, "flash_attention": FA_SOURCE}
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc a source, all at once
+        libs = dict(zip(sources, pool.map(build_library, sources)))
+    say("build", sources=list(sources.values()), libraries=[p.name for p in libs.values()],
+        seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     graph = table2_workloads(scale=scale, seed=args.seed, names=("amazon",))["amazon"]
@@ -413,6 +747,9 @@ def main() -> int:
     grid = dataclasses.replace(GRIDS["paper"], name="paper-amazon", workloads=("amazon",),
                                scale=scale, seed=args.seed)
     _, launches = phase_sweep(device, grid, graph, info["nvidia_smi"])
+    del graph, small
+    attn = phase_attention(device, timer)
+    _, fa_launches = phase_serve(device, args.seed, info["nvidia_smi"])
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -424,6 +761,15 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
         "shape": "every real ELL bucket of amazon (PageRank weights) at D=1, one reduce in sequence",
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": fa_launches,
+        "max_abs_err": max(attn["max_abs_err_f32"], attn["max_abs_err_bf16"], attn["path_max_abs_err"]),
+        "max_abs_err_f32": attn["max_abs_err_f32"],
+        "ms": attn["kernel_ms"], "call_ms": attn["kernel_call_ms"], "plain_ms": attn["ref_ms"],
+        "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
+        "shape": f"llama3.2-3b prefill attention: q (1, {ATTN_TIMED_S}, 24, 128), k/v (1, {ATTN_TIMED_S}, 8, 128) "
+                 "bf16, causal",
     }]}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

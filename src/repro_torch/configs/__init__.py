@@ -1,0 +1,1 @@
+"""Architecture configurations the port can run (`registry.get_arch`)."""

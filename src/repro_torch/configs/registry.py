@@ -1,0 +1,38 @@
+"""--arch registry: the dense LM archs the port can run.
+
+The JAX package's other archs are known by name and raise
+`NotImplementedError` naming the ROADMAP.md item that brings them.
+"""
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["ARCH_IDS", "PENDING", "get_arch"]
+
+_MODULES = {
+    "granite-34b": "granite_34b",
+    "llama3.2-3b": "llama3_2_3b",
+    "yi-34b": "yi_34b",
+}
+
+PENDING = {
+    "qwen2-moe-a2.7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
+    "olmoe-1b-7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
+    "gin-tu": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
+    "graphcast": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
+    "gat-cora": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
+    "pna": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
+    "dcn-v2": "the recsys path (ROADMAP.md Queue B 3, embedding_bag, and Queue A 8, models/recsys.py)",
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get_arch(arch_id: str):
+    if arch_id in PENDING:
+        raise NotImplementedError(f"arch {arch_id!r} is not ported yet: {PENDING[arch_id]}")
+    try:
+        mod = _MODULES[arch_id]
+    except KeyError:
+        raise ValueError(f"unknown arch {arch_id!r}; options: {ARCH_IDS}") from None
+    return importlib.import_module(f"repro_torch.configs.{mod}").ARCH

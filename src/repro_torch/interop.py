@@ -1,10 +1,11 @@
 """State carried across from the JAX package, as plain numpy arrays and dicts.
 
-This path has no weights; its state is graphs, ELL buckets, traces,
-partitions, traffic and placements.  The caller converts the other package's
-objects to numpy arrays and plain values (this module imports nothing of it)
-and these functions build the port's own objects from them, so that both
-packages can be made to compute on the same things.
+The paper path's state is graphs, ELL buckets, traces, partitions, traffic
+and placements; the LM path's is the transformer's weights.  The caller
+converts the other package's objects to numpy arrays and plain values (this
+module imports nothing of it) and these functions build the port's own
+objects from them, so that both packages can be made to compute on the same
+things.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ from repro_torch.core.traffic import TrafficMatrix
 from repro_torch.device import resolve_device
 from repro_torch.graph.structs import EllBlocks, HostGraph
 from repro_torch.graph.vertex_program import TraceResult
+from repro_torch.models.transformer import TransformerConfig, layer_shapes
 
-__all__ = ["host_graph", "ell_blocks", "trace_result", "partition", "traffic_matrix", "placement"]
+__all__ = ["host_graph", "ell_blocks", "trace_result", "partition", "traffic_matrix", "placement",
+           "transformer_params"]
 
 
 def host_graph(num_nodes, src, dst, weight=None, name: str = "graph") -> HostGraph:
@@ -84,3 +87,27 @@ def placement(topology_name: str, shape, site, method: str) -> Placement:
     """`shape` is the topology's constructor dimensions, e.g. (8, 8)."""
     topo = topology_by_name(topology_name, *[int(k) for k in shape])
     return Placement(topo, np.asarray(site, dtype=np.int64), str(method))
+
+
+def transformer_params(tree: dict, cfg: TransformerConfig, device: str | torch.device | None = None) -> dict:
+    """The JAX package's transformer params (`repro.models.transformer.
+    init_params`), given as nested dicts of numpy arrays, as the port's
+    params on `device`: the same layout and values, in `cfg.param_dtype`.
+    Raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    want = {"embed": (cfg.vocab, cfg.d_model), "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (cfg.d_model, cfg.vocab)
+    want_layers = {k: (cfg.n_layers, *s) for k, s in layer_shapes(cfg).items()}
+    if set(tree) != set(want) | {"layers"} or set(tree["layers"]) != set(want_layers):
+        raise ValueError(f"param tree keys {sorted(tree)} / {sorted(tree.get('layers', {}))} do not match {cfg.name}")
+
+    def to(a, shape, name):
+        a = np.array(a, dtype=np.float32)  # a writable copy
+        if a.shape != shape:
+            raise ValueError(f"{name}: shape {a.shape}, want {shape}")
+        return torch.from_numpy(a).to(device=dev, dtype=cfg.param_dtype)
+
+    out = {k: to(tree[k], s, k) for k, s in want.items()}
+    out["layers"] = {k: to(tree["layers"][k], s, k) for k, s in want_layers.items()}
+    return out

@@ -1,0 +1,98 @@
+"""Build, argument checks and launch of the CUDA kernel `csrc/flash_attention.cu`.
+
+Importing this module builds nothing and needs no CUDA: `nvcc` runs at the
+first launch (see `repro_torch.kernels.build`).  `flash_attention_cuda` takes
+CUDA tensors only and raises on anything the kernel does not take; the choice
+between kernel and plain version is made in `ops.py`.  Each launch adds one
+to `ops.flash_attention.launches`, here and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.flash_attention import ops
+
+__all__ = ["LIBRARY", "HEAD_DIMS", "flash_attention_cuda"]
+
+LIBRARY = "flash_attention"
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def _launcher():
+    global _FN
+    if _FN is None:
+        fn = load_library(LIBRARY).flash_attention_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv Hq Hkv dh
+            *([ctypes.c_longlong] * 9),  # (b, s, h) strides of q, k, v
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal q_offset scale dtype
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(name: str, t: torch.Tensor, like: torch.Tensor):
+    if t.device != like.device:
+        raise ValueError(f"flash_attention: {name} lies on {t.device}, q on {like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {like.dtype}")
+    if t.dim() != 4:
+        raise ValueError(f"flash_attention: {name} must be (B, S, H, dh), got {tuple(t.shape)}")
+    # 16-byte vector loads along dh: unit stride there, aligned rows
+    vec = 16 // t.element_size()
+    if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(
+            f"flash_attention: {name} needs unit stride along dh and 16-byte aligned rows, "
+            f"got strides {t.stride()}"
+        )
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0
+) -> torch.Tensor:
+    """q (B, Sq, Hq, dh), k/v (B, Skv, Hkv, dh), f32|bf16, dh ∈ {32, 64, 128},
+    Hq a multiple of Hkv → (B, Sq, Hq, dh) in q's type.  One launch on the
+    current stream, no synchronisation; the output is the only allocation."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_cuda takes CUDA tensors; the plain version is ref.flash_attention_ref")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q)
+    b, sq, hq, dh = q.shape
+    bk_, skv, hkv, dk = k.shape
+    if v.shape != k.shape or bk_ != b or dk != dh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads are not a multiple of {hkv} kv heads")
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if skv == 0:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, skv, hq, hkv, dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(bool(causal)), int(q_offset), 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
+    )
+    if q.device.index == torch.cuda.current_device():
+        err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
+    else:  # the launch goes to the device that holds the tensors
+        with torch.cuda.device(q.device):
+            err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: launch failed with CUDA error {err} (-1: refused arguments)")
+    ops.flash_attention.launches += 1
+    return out

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.structs import build_ell
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
 from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref
 
@@ -85,3 +87,68 @@ def test_whole_graph_equals_coo_oracle(seed):
     want = coo_spmm_ref(x, torch.from_numpy(g.src).cuda(), torch.from_numpy(g.dst).cuda(),
                         torch.from_numpy(g.weight).cuda(), 1500)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+# ------------------------------------------------------------ flash attention
+
+ATTN_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32), (2, 96, 160, 4, 4, 64),
+               (1, 200, 200, 6, 2, 128), (1, 77, 77, 24, 8, 128), (3, 1, 40, 4, 2, 32)]
+
+
+def _attn_inputs(b, sq, skv, hq, hkv, dh, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+            for s in ((b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh", ATTN_SHAPES)
+def test_flash_attention_matches_plain_version(b, sq, skv, hq, hkv, dh, causal, dtype):
+    _need_card()
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, dh, dtype)
+    off = skv - sq if causal else 0
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, q_offset=off)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **(TOL if dtype == torch.float32 else BF16_TOL))
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, q_offset=off))  # no atomics
+
+
+@pytest.mark.gpu
+def test_flash_attention_reads_strided_views():
+    """q/k/v as views into one packed (B, S, Hq + 2·Hkv, dh) projection."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((2, 130, 12, 64)).astype(np.float32)).cuda().bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    q, k, v = _attn_inputs(1, 64, 64, 4, 2, 64, torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, k, v, kv_valid_len=torch.tensor([10], device="cuda"))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError):
+        flash_attention(*_attn_inputs(1, 64, 64, 4, 2, 96, torch.bfloat16))  # dh 96
+    with pytest.raises(ValueError):
+        flash_attention(q, k[..., :1, :], v)  # k and v differ
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), k, v)  # dh not contiguous
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    assert flash_attention.launches == before
+    got = flash_attention(q, k, v, kv_valid_len=torch.tensor([10], device="cuda"), impl="ref")
+    assert got.shape == q.shape and flash_attention.launches == before

@@ -30,9 +30,15 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_the_walk_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/graph/vertex_program.py", "src/repro_torch/kernels/segment_spmm/kernel.py",
-                 "src/repro_torch/experiments/sweep.py", "src/repro_torch/interop.py", "chip_smoke.py"):
+                 "src/repro_torch/experiments/sweep.py", "src/repro_torch/interop.py", "chip_smoke.py",
+                 "src/repro_torch/configs/base.py", "src/repro_torch/configs/llama3_2_3b.py",
+                 "src/repro_torch/configs/registry.py", "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/transformer.py", "src/repro_torch/kernels/flash_attention/ref.py",
+                 "src/repro_torch/kernels/flash_attention/kernel.py", "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/serve/engine.py", "src/repro_torch/launch/serve.py"):
         assert must in names
-    assert (ROOT / "src" / "repro_torch" / "csrc" / "ell_spmm.cu").is_file()
+    for cu in ("ell_spmm.cu", "flash_attention.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -102,10 +108,15 @@ def test_entry_points_default_to_the_card():
     from repro_torch.graph.generators import rmat
     from repro_torch.graph.structs import build_ell, to_device_edges
     from repro_torch.graph.vertex_program import run, run_traced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import transformer as tfm
     import numpy as np
 
     g = rmat(64, 256, seed=0)
     w = np.ones((4, 4))
+    cfg = get_arch("llama3.2-3b").smoke_config()
+    params = tfm.init_params(cfg, device="cpu")
     calls = [
         lambda: run(g, alg.bfs_program()),
         lambda: run_traced(g, alg.bfs_program()),
@@ -113,6 +124,9 @@ def test_entry_points_default_to_the_card():
         lambda: build_ell(g),
         lambda: greedy_construct_batch([w], [Mesh2D(2, 2)]),
         lambda: batch_descend([w], [Mesh2D(2, 2)], [np.arange(4)]),
+        lambda: tfm.init_params(cfg),
+        lambda: tfm.init_kv_cache(cfg, 2, 16),
+        lambda: build_engine(cfg, params, slots=2, max_seq=16),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -130,6 +144,14 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
     out = segment_spmm(torch.ones((80, 1)), build_ell(g.reversed(), device="cpu"))
     assert out.shape == (80, 1) and ell_spmm.launches == before
     assert float(out.sum()) == g.num_edges  # all-ones x, unweighted: in-degrees
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    assert isinstance(flash_attention.launches, int)
+    before = flash_attention.launches
+    q = torch.ones((1, 5, 4, 32))
+    out = flash_attention(q, torch.ones((1, 5, 2, 32)), torch.ones((1, 5, 2, 32)))
+    assert out.shape == q.shape and flash_attention.launches == before
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
