@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two paths, each driven with its kernel's launch count set to 0 just before
+Three paths, each driven with its kernel's launch count set to 0 just before
 and read just after:
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -16,7 +16,15 @@ and read just after:
   published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
   max_seq 4096, float32 KV cache, 8 requests of 512-3072 prompt tokens and 32
-  new tokens each; its kernel is `flash_attention` (every prefill layer).
+  new tokens each; its kernel is `flash_attention` (every prefill layer);
+* recsys: dcn-v2 at its published configuration (26 tables × 1,000,000 × 16,
+  cross 3 × 429², MLP 1024-1024-512: 418,569,930 float32 params from a seeded
+  generator on the card) — the `RECSYS_SHAPES` cells `serve_p99` (batch 512),
+  `serve_bulk` (262,144) and `retrieval_cand` (1 query, 1,000,000 candidates,
+  top-100) through `models.recsys`, then `train_batch` (65,536) for 20 steps
+  through `launch.train.train`, the code path of `python -m
+  repro_torch.launch.train --arch dcn-v2 --batch 65536`; its kernel is
+  `embedding_bag` (every forward and every training step).
 
 Phases, one JSON line each:
 
@@ -32,6 +40,18 @@ Phases, one JSON line each:
              its time beside the operation bound and
              `scaled_dot_product_attention`
   serve      the serve path, its throughput, and full-width logit checks
+  embedding_bag  `embedding_bag` against its plain version (test shapes, f32
+             and bf16, weighted or not; autograd gradients of tables and
+             weights; dcn-v2's lookup at batch 65,536 and a weighted
+             multi-hot lookup, L = 8 at batch 8,192; two runs bit-equal) and
+             its time beside the byte bound and `F.embedding_bag`
+  recsys     the recsys path: serve logits of the kernel route against the
+             plain route, retrieval top-100 against the full scores, 20
+             training steps against the same 20 through the plain route:
+             table rows never looked up only decayed, looked-up rows changed
+             (the same rows in both routes)
+
+Every line carries `seconds`, the time since the line before it.
 
 then the contract lines: one `{"kernels": [...]}` object, the card's name and
 power limit as `nvidia-smi` prints them, and last
@@ -80,6 +100,34 @@ ATTN_TIMED_S = 2048
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
 
+# embedding bag: tests/test_kernels.py:84-86 (T, V, D, B, L); the path's
+# lookup is dcn-v2's, single-hot at the train_batch cell's 65,536, and a
+# weighted multi-hot lookup (DcnConfig.multi_hot) at L = 8, batch 8,192
+BAG_TEST_SHAPES = [(3, 64, 128, 4, 5), (2, 32, 16, 8, 1), (1, 100, 256, 2, 7), (4, 17, 8, 3, 2)]
+BAG_PATH_BATCH = 65_536
+BAG_MULTI_HOT, BAG_MULTI_BATCH = 8, 8_192
+BAG_SOURCE = "src/repro_torch/csrc/embedding_bag.cu"
+BAG_REPLACES = "src/repro/kernels/embedding_bag/kernel.py:51"
+SECTOR_BYTES = 32  # the unit in which device memory serves a gathered row
+
+# recsys: dcn-v2 at its published configuration
+RECSYS_ARCH = "dcn-v2"
+RECSYS_PARAMS = 418_569_930
+TRAIN_STEPS, TRAIN_LR = 20, 1e-3  # launch.train's defaults but for --steps
+# the two routes' forwards are bit-equal at L = 1 (one id × 1.0); their
+# backward is one code path whose `index_add_` adds with atomics in a run's
+# own order, so the routes drift apart by rounding only
+TRAIN_LOSS_TOL = 1e-4
+DECAY_RTOL = 1e-5  # 20 steps of p − lr·wd·p in float32, three roundings a step
+# The loss falls from 0.69 to about 0.12 in the 20 steps: a row looked up late,
+# by well-classified examples only, gets a gradient far below AdamW's eps and
+# moves by less than DECAY_RTOL — in both routes alike.  So: every row never
+# looked up only decays; every row first looked up in the first half changes;
+# at least this share of all looked-up rows changes; and the plain route
+# changes the same rows, but for this share of them (atomic-order noise)
+ROWS_CHANGED_MIN_SHARE = 0.9
+ROUTES_ROW_DISAGREEMENT_MAX = 1e-4
+
 # serve: llama3.2-3b at its published width and depth
 SERVE_ARCH = "llama3.2-3b"
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
@@ -92,7 +140,14 @@ MODEL_TOL = dict(rtol=2e-3, atol=2e-3)  # float32 logits, as tests/test_models.p
 BF16_ROUTE_FACTOR = 1.5
 
 
+_LAST_LINE = [time.perf_counter()]
+
+
 def say(phase: str, **fields) -> None:
+    """One JSON line; `seconds` is the time since the line before it."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -703,6 +758,325 @@ def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict,
     return out, launches
 
 
+# --------------------------------------------------------------------------- embedding bag
+
+
+def bag_bound_ms(tables: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None) -> tuple[float, str, int]:
+    """Least time for one `embedding_bag` call on these inputs: the ids (and
+    weights) read once, each distinct (t, id) row once in whole 32-byte
+    sectors, and the output written once, over the memory rate — hot Zipf
+    rows come again and again, and a bound that counted every gathered row
+    would be beaten by the L2 — against the multiply-adds of the real slots
+    over the f32 rate.  Returns (ms, what bounds it, distinct rows)."""
+    t, v, d = tables.shape
+    b = ids.shape[0]
+    valid = (ids >= 0) & (ids < v)
+    rows = (torch.arange(t, device=ids.device)[None, :, None] * v + ids.long())[valid]
+    distinct = int(torch.unique(rows).numel())
+    item = tables.element_size()
+    row_bytes = -(-d * item // SECTOR_BYTES) * SECTOR_BYTES
+    nbytes = distinct * row_bytes + ids.numel() * 4 + (weights.numel() * 4 if weights is not None else 0)
+    nbytes += b * t * d * item
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2.0 * int(valid.sum()) * d / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), distinct
+
+
+def library_bag(tables: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None):
+    """The same function as one `F.embedding_bag` call (the yardstick; used
+    nowhere in the port): tables viewed as (T·V, D), ids offset by t·V and
+    clamped, `mode="sum"`, per-sample weights w·valid.  The inputs are
+    prepared once; the returned callable is the call alone."""
+    import torch.nn.functional as F
+
+    t, v, d = tables.shape
+    b, _, l = ids.shape
+    valid = (ids >= 0) & (ids < v)
+    flat = (ids.long().clamp(0, v - 1) + torch.arange(t, device=ids.device)[None, :, None] * v).reshape(b * t, l)
+    psw = (valid.float() if weights is None else weights * valid).reshape(b * t, l)
+    table2d = tables.view(t * v, d)
+    return lambda: F.embedding_bag(flat, table2d, mode="sum", per_sample_weights=psw).view(b, t, d)
+
+
+def phase_bag(device: torch.device, seed: int, timer: Timer) -> dict:
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    rng = np.random.default_rng(2)
+
+    def inputs(t, v, d, b, l):
+        tables = torch.from_numpy(rng.standard_normal((t, v, d)).astype(np.float32)).to(device)
+        ids = torch.from_numpy(rng.integers(-2, v, (b, t, l)).astype(np.int32)).to(device)  # with padding ids
+        w = torch.from_numpy(rng.standard_normal((b, t, l)).astype(np.float32)).to(device)
+        return tables, ids, w
+
+    def held(tables, ids, w, tol, what):
+        got, again, want = embedding_bag(tables, ids, w), embedding_bag(tables, ids, w), embedding_bag_ref(tables, ids, w)
+        torch.cuda.synchronize()
+        check(got.dtype == tables.dtype and got.shape == (ids.shape[0], tables.shape[0], tables.shape[2]),
+              f"shape/dtype at {what}")
+        check(torch.equal(got, again), f"two runs differ at {what}")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), **tol), f"kernel vs plain version at {what}: max abs err {err}")
+        return got, err
+
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    cases = 0
+    grad_err = 0.0
+    for shape in BAG_TEST_SHAPES:
+        tables32, ids, w = inputs(*shape)
+        for dtype, tag, tol in ((torch.float32, "f32", F32_TOL), (torch.bfloat16, "bf16", BF16_TOL)):
+            for ww in (w, None):
+                _, err = held(tables32.to(dtype), ids, ww, tol, (*shape, tag, ww is not None))
+                max_err[tag] = max(max_err[tag], err)
+                cases += 1
+        # gradients of tables and weights through the kernel's autograd.Function
+        # against autograd through the plain version
+        g = torch.from_numpy(rng.standard_normal((shape[3], shape[0], shape[2])).astype(np.float32)).to(device)
+        t1, w1 = tables32.clone().requires_grad_(), w.clone().requires_grad_()
+        before = embedding_bag.launches
+        (embedding_bag(t1, ids, w1) * g).sum().backward()
+        check(embedding_bag.launches == before + 1, "the gradient's forward must be the kernel")
+        t2, w2 = tables32.clone().requires_grad_(), w.clone().requires_grad_()
+        (embedding_bag_ref(t2, ids, w2) * g).sum().backward()
+        for a, b_, name in ((t1.grad, t2.grad, "tables"), (w1.grad, w2.grad, "weights")):
+            e = float((a - b_).abs().max())
+            check(torch.allclose(a, b_, **F32_TOL), f"d {name} at {shape}: max abs err {e}")
+            grad_err = max(grad_err, e)
+
+    # the path's lookup: dcn-v2's tables, Zipf ids from its pipeline
+    cfg = get_arch(RECSYS_ARCH).model_config()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables = torch.randn((cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim), generator=gen,
+                         device=device).mul_(0.01)  # init_params' scale
+    t0 = time.perf_counter()
+    single = next(iter(RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, BAG_PATH_BATCH, seed=seed)))
+    batch_host_s = time.perf_counter() - t0
+    multi = next(iter(RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, BAG_MULTI_BATCH,
+                                     multi_hot=BAG_MULTI_HOT, seed=seed)))
+    lookups = {
+        "single_hot": (torch.from_numpy(single["sparse_ids"]).to(device)[..., None], None),
+        "multi_hot_weighted": (torch.from_numpy(multi["sparse_ids"]).to(device),
+                               torch.from_numpy(rng.random(multi["sparse_ids"].shape, dtype=np.float32)).to(device)),
+    }
+    path = {}
+    for name, (ids, w) in lookups.items():
+        got, err = held(tables, ids, w, F32_TOL, name)
+        lib_fn = library_bag(tables, ids, w)
+        lib = lib_fn()
+        torch.cuda.synchronize()
+        lib_err = float((lib - got).abs().max())
+        check(torch.allclose(lib, got, **F32_TOL), f"kernel vs F.embedding_bag at {name}: {lib_err}")
+        bound, by, distinct = bag_bound_ms(tables, ids, w)
+        path[name] = {
+            "B": int(ids.shape[0]), "T": int(ids.shape[1]), "L": int(ids.shape[2]), "V": cfg.rows_per_table,
+            "D": cfg.embed_dim, "weighted": w is not None, "distinct_rows": distinct,
+            "gathered_rows": int(ids.numel()), "max_abs_err": err, "library_max_abs_err": lib_err,
+            "ms": timer.device_ms(lambda: embedding_bag(tables, ids, w)),
+            "call_ms": timer.call_ms(lambda: embedding_bag(tables, ids, w)),
+            "plain_ms": timer.call_ms(lambda: embedding_bag_ref(tables, ids, w), calls=5, reps=5),
+            "library_ms": timer.call_ms(lib_fn),
+            "bound_ms": bound, "bound_by": by,
+        }
+    out = {
+        "test_cases": cases, "max_abs_err_f32": max_err["f32"], "max_abs_err_bf16": max_err["bf16"],
+        "grad_max_abs_err": grad_err, "tolerance_f32": F32_TOL, "tolerance_bf16": BF16_TOL,
+        "bit_equal_two_runs": True, "path": path,
+        "path_max_abs_err": max(p["max_abs_err"] for p in path.values()),
+        "zipf_batch_host_ms": batch_host_s * 1e3,
+        "timing": "warm medians with CUDA events. ms: device time, replayed from a CUDA graph; call_ms, "
+                  "plain_ms, library_ms: calls enqueued back to back from Python. library: F.embedding_bag "
+                  "(mode='sum', per_sample_weights=w·valid) on tables.view(T·V, D) with ids offset by t·V "
+                  "and clamped, prepared once. zipf_batch_host_ms: RecsysPipeline's first batch of 65,536",
+    }
+    say("embedding_bag", **out)
+    return out
+
+
+# --------------------------------------------------------------------------- recsys
+
+
+def phase_recsys(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, int]:
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import RecsysPipeline, to_device
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.launch.train import train
+    from repro_torch.models import recsys as rec
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+
+    cfg = get_arch(RECSYS_ARCH).model_config()
+    plain = dataclasses.replace(cfg, bag_impl="ref")
+    check(cfg.num_params == RECSYS_PARAMS, f"dcn-v2 has {cfg.num_params} params, want {RECSYS_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rec.init_params(cfg, seed, device=device)  # a seeded torch.Generator on the card
+    # `num_params` is the reference's formula, which counts 2·d0 a cross layer
+    # for what is one d0 bias: the tensors hold n_cross·d0 fewer
+    held_params = sum(t.numel() for t in [params["tables"]] + [
+        t for lp in params["cross"] + params["mlp"] + [params["out"]] for t in lp.values()])
+    check(held_params == RECSYS_PARAMS - cfg.n_cross_layers * cfg.d_input, f"params made: {held_params}")
+
+    def first_batch(batch_size):
+        return next(iter(RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, batch_size, seed=seed)))
+
+    cells = ("serve_p99", "serve_bulk")
+    batches = {c: to_device(first_batch(RECSYS_SHAPES[c]["batch"]), device) for c in cells}
+    query = to_device(first_batch(RECSYS_SHAPES["retrieval_cand"]["batch"]), device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    cands = torch.randn((n_cand, cfg.mlp_dims[-1]), generator=gen, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # ---- the main path: serve, retrieve, train (the kernel's route)
+    losses, walls = [], []
+    first = torch.full((cfg.n_sparse * cfg.rows_per_table,), -1, dtype=torch.int16, device=device)
+    offsets = torch.arange(cfg.n_sparse, device=device) * cfg.rows_per_table
+
+    def on_step(state, metrics, batch):
+        losses.append(metrics["loss"])
+        rows = (batch["sparse_ids"].long() + offsets).reshape(-1)
+        first[rows] = torch.where(first[rows] < 0, metrics["step"], first[rows]).to(torch.int16)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter())
+
+    train_log = []
+    embedding_bag.launches = 0
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        logits = {c: rec.forward(params, batches[c], cfg) for c in cells}
+        vals, idx = rec.retrieval_scores(params, query, cands, cfg, top_k=100)
+    serve_launches = embedding_bag.launches
+    t_train = time.perf_counter()
+    state = train(RECSYS_ARCH, steps=TRAIN_STEPS, batch=RECSYS_SHAPES["train_batch"]["batch"], lr=TRAIN_LR,
+                  device=device, seed=seed, on_step=on_step, log_fn=train_log.append)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_train
+    launches = embedding_bag.launches
+    check(serve_launches == len(cells) + 1, f"embedding_bag launched {serve_launches} times in serving, want 3")
+    check(launches == serve_launches + TRAIN_STEPS, f"embedding_bag launched {launches} times, want "
+          f"{len(cells) + 1} + {TRAIN_STEPS}")
+    check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, f"trained {state.step} steps")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+
+    # ---- serving against the plain route
+    serve = {}
+    with torch.inference_mode():
+        for c in cells:
+            want = rec.forward(params, batches[c], plain)
+            torch.cuda.synchronize()
+            e = float((logits[c] - want).abs().max())
+            check(logits[c].shape == (RECSYS_SHAPES[c]["batch"],) and bool(torch.isfinite(logits[c]).all()),
+                  f"{c}: logits")
+            check(torch.allclose(logits[c], want, **MODEL_TOL), f"{c}: kernel vs plain route, max abs err {e}")
+            ms = timer.call_ms(lambda: rec.forward(params, batches[c], cfg), calls=5, reps=5)
+            serve[c] = {"batch": RECSYS_SHAPES[c]["batch"], "max_abs_err_vs_plain": e, "ms": ms,
+                        "rows_per_s": RECSYS_SHAPES[c]["batch"] / (ms / 1e3),
+                        "plain_ms": timer.call_ms(lambda: rec.forward(params, batches[c], plain), calls=5, reps=5)}
+        scores = rec.user_tower(params, query, cfg) @ cands.T
+        top = scores.float().sort(dim=-1, descending=True).values[:, :100]
+        torch.cuda.synchronize()
+        check(vals.shape == (1, 100) and torch.equal(vals, top), "retrieval top-100 vs the sorted full scores")
+        check(float(vals[0, 0]) == float(scores.max()), "retrieval: the best score is the maximum")
+        check(torch.equal(scores[0, idx[0]].float(), vals[0]), "retrieval: indices point at their values")
+        retrieval = {"candidates": n_cand, "width": cfg.mlp_dims[-1], "top_k": 100,
+                     "candidates_gb": cands.numel() * 4 / 1e9, "top_equals_sorted_full_scores": True,
+                     "ms": timer.call_ms(lambda: rec.retrieval_scores(params, query, cands, cfg), calls=5, reps=5)}
+    del cands, scores
+
+    # ---- training: gradient reached the tables through the kernel's Function
+    decay = 1.0
+    lr_fn = cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)
+    for k in range(TRAIN_STEPS):
+        decay *= 1.0 - lr_fn(k) * 0.1  # adamw's weight decay, the only force on a row never looked up
+
+    def changed_rows(tables):
+        p0 = params["tables"].reshape(-1, cfg.embed_dim)
+        p1 = tables.detach().reshape(-1, cfg.embed_dim)
+        return ~((p1 - p0 * decay).abs() <= DECAY_RTOL * p0.abs() + 1e-12).all(dim=1)
+
+    changed = changed_rows(state.params["tables"])
+    touched = first >= 0
+    n_touched, n_changed = int(touched.sum()), int(changed[touched].sum())
+    unchanged_by_first_step = [int((~changed & (first == k)).sum()) for k in range(TRAIN_STEPS)]
+    check(not bool(changed[~touched].any()), "a table row never looked up changed by more than weight decay")
+    check(sum(unchanged_by_first_step[:TRAIN_STEPS // 2]) == 0,
+          f"rows first looked up in the first half did not change: {unchanged_by_first_step}")
+    check(n_changed >= ROWS_CHANGED_MIN_SHARE * n_touched, f"only {n_changed} of {n_touched} looked-up rows changed")
+
+    # host share: a step on a resident batch (device time) against the loop's wall time a step
+    step_walls = np.diff(walls)
+    init, step = make_train_step(lambda p, b: rec.loss_fn(p, b, cfg), adamw(lr_fn))
+    st = init(state.params)
+    resident = to_device(first_batch(RECSYS_SHAPES["train_batch"]["batch"]), device)
+    for _ in range(2):
+        st, _ = step(st, resident)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        st, _ = step(st, resident)
+    b.record()
+    torch.cuda.synchronize()
+    step_device_ms = a.elapsed_time(b) / 5
+    t0 = time.perf_counter()
+    host = iter(RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, RECSYS_SHAPES["train_batch"]["batch"],
+                               seed=seed + 1))
+    for _ in range(3):
+        next(host)
+    batch_host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del st, state
+
+    # ---- the same 20 steps through the plain route
+    ref_losses = []
+    torch.cuda.empty_cache()
+    before = embedding_bag.launches
+    ref_state = train(RECSYS_ARCH, steps=TRAIN_STEPS, batch=RECSYS_SHAPES["train_batch"]["batch"], lr=TRAIN_LR,
+                      device=device, seed=seed, bag_impl="ref",
+                      on_step=lambda s, m, bt: ref_losses.append(m["loss"]), log_fn=lambda _: None)
+    ref_losses = [float(x) for x in ref_losses]
+    check(embedding_bag.launches == before, "the plain route launched the kernel")
+    loss_diff = float(np.max(np.abs(np.array(losses) - np.array(ref_losses))))
+    check(loss_diff <= TRAIN_LOSS_TOL, f"losses, kernel vs plain route: max abs diff {loss_diff}")
+    disagree = int((changed_rows(ref_state.params["tables"]) != changed)[touched].sum())
+    check(disagree <= ROUTES_ROW_DISAGREEMENT_MAX * n_touched,
+          f"the routes change different looked-up rows: {disagree} of {n_touched}")
+    del ref_state
+
+    wall_ms = float(np.median(step_walls[1:])) * 1e3
+    out = {
+        "arch": RECSYS_ARCH, "params": cfg.num_params, "params_held": held_params,
+        "params_gb": held_params * 4 / 1e9,
+        "tables": [cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim], "d_input": cfg.d_input,
+        "mlp": list(cfg.mlp_dims), "cross_layers": cfg.n_cross_layers, "cuts": [],
+        "setup_s": setup_s, "serve": serve, "retrieval": retrieval,
+        "train": {
+            "batch": RECSYS_SHAPES["train_batch"]["batch"], "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+            "losses": losses, "plain_route_losses": ref_losses, "loss_max_abs_diff": loss_diff,
+            "loss_tolerance": TRAIN_LOSS_TOL, "rows_looked_up": n_touched,
+            "rows_looked_up_changed": n_changed, "rows_never_looked_up_only_decayed": True,
+            "rows_unchanged_by_first_step": unchanged_by_first_step,
+            "rows_change_status_differs_from_plain_route": disagree, "decay_factor": decay, "wall_s": train_s, "step_wall_ms_median": wall_ms,
+            "step_device_ms": step_device_ms, "zipf_batch_host_ms": batch_host_ms,
+            "host_share": max(0.0, 1.0 - step_device_ms / wall_ms), "log": train_log,
+        },
+        "embedding_bag_launches": launches, "serve_launches": serve_launches,
+        "max_memory_allocated_gb": peak_gb,
+        "timing": "serve/retrieval ms: calls enqueued back to back, CUDA events (plain_ms: the plain "
+                  "embedding-bag route); step_wall_ms_median: host clock between the ends of consecutive "
+                  "loop steps, each synchronised; step_device_ms: 5 steps on one resident batch between two "
+                  "CUDA events; host_share = 1 - step_device_ms / step_wall_ms_median",
+        "card": smi,
+    }
+    say("recsys", **out)
+    return out, launches
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -729,7 +1103,7 @@ def main() -> int:
     say("probe", **info)
 
     t0 = time.perf_counter()
-    sources = {"ell_spmm": KERNEL_SOURCE, "flash_attention": FA_SOURCE}
+    sources = {"ell_spmm": KERNEL_SOURCE, "flash_attention": FA_SOURCE, "embedding_bag": BAG_SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc a source, all at once
         libs = dict(zip(sources, pool.map(build_library, sources)))
     say("build", sources=list(sources.values()), libraries=[p.name for p in libs.values()],
@@ -750,6 +1124,9 @@ def main() -> int:
     del graph, small
     attn = phase_attention(device, timer)
     _, fa_launches = phase_serve(device, args.seed, info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    bag = phase_bag(device, args.seed, timer)
+    _, bag_launches = phase_recsys(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -770,6 +1147,17 @@ def main() -> int:
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
         "shape": f"llama3.2-3b prefill attention: q (1, {ATTN_TIMED_S}, 24, 128), k/v (1, {ATTN_TIMED_S}, 8, 128) "
                  "bf16, causal",
+    }, {
+        "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE, "replaces": BAG_REPLACES,
+        "launches": bag_launches,
+        "max_abs_err": max(bag["max_abs_err_f32"], bag["path_max_abs_err"], bag["grad_max_abs_err"]),
+        "max_abs_err_bf16": bag["max_abs_err_bf16"],
+        **{k: bag["path"]["single_hot"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")},
+        "shape": f"dcn-v2 lookup: tables (26, 1000000, 16) f32, ids ({BAG_PATH_BATCH}, 26, 1) Zipf(1.1), "
+                 "no weights",
+        "multi_hot_weighted": {k: bag["path"]["multi_hot_weighted"][k] for k in (
+            "B", "L", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

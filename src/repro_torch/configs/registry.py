@@ -1,4 +1,4 @@
-"""--arch registry: the dense LM archs the port can run.
+"""--arch registry: the dense LM archs and dcn-v2, which the port can run.
 
 The JAX package's other archs are known by name and raise
 `NotImplementedError` naming the ROADMAP.md item that brings them.
@@ -7,12 +7,13 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["ARCH_IDS", "PENDING", "get_arch"]
+__all__ = ["ARCH_IDS", "PENDING", "get_arch", "arch_ids"]
 
 _MODULES = {
     "granite-34b": "granite_34b",
     "llama3.2-3b": "llama3_2_3b",
     "yi-34b": "yi_34b",
+    "dcn-v2": "dcn_v2",
 }
 
 PENDING = {
@@ -22,7 +23,6 @@ PENDING = {
     "graphcast": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
     "gat-cora": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
     "pna": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
-    "dcn-v2": "the recsys path (ROADMAP.md Queue B 3, embedding_bag, and Queue A 8, models/recsys.py)",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -36,3 +36,8 @@ def get_arch(arch_id: str):
     except KeyError:
         raise ValueError(f"unknown arch {arch_id!r}; options: {ARCH_IDS}") from None
     return importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+
+
+def arch_ids(family: str) -> list[str]:
+    """The ported archs of one family ("lm" or "recsys")."""
+    return [a for a in ARCH_IDS if get_arch(a).family == family]

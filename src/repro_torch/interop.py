@@ -1,7 +1,8 @@
 """State carried across from the JAX package, as plain numpy arrays and dicts.
 
 The paper path's state is graphs, ELL buckets, traces, partitions, traffic
-and placements; the LM path's is the transformer's weights.  The caller
+and placements; the LM path's is the transformer's weights; the recsys path's
+is dcn-v2's weights.  The caller
 converts the other package's objects to numpy arrays and plain values (this
 module imports nothing of it) and these functions build the port's own
 objects from them, so that both packages can be made to compute on the same
@@ -19,10 +20,11 @@ from repro_torch.core.traffic import TrafficMatrix
 from repro_torch.device import resolve_device
 from repro_torch.graph.structs import EllBlocks, HostGraph
 from repro_torch.graph.vertex_program import TraceResult
+from repro_torch.models.recsys import DcnConfig
 from repro_torch.models.transformer import TransformerConfig, layer_shapes
 
 __all__ = ["host_graph", "ell_blocks", "trace_result", "partition", "traffic_matrix", "placement",
-           "transformer_params"]
+           "transformer_params", "recsys_params"]
 
 
 def host_graph(num_nodes, src, dst, weight=None, name: str = "graph") -> HostGraph:
@@ -111,3 +113,40 @@ def transformer_params(tree: dict, cfg: TransformerConfig, device: str | torch.d
     out = {k: to(tree[k], s, k) for k, s in want.items()}
     out["layers"] = {k: to(tree["layers"][k], s, k) for k, s in want_layers.items()}
     return out
+
+
+def recsys_params(tree: dict, cfg: DcnConfig, device: str | torch.device | None = None) -> dict:
+    """The JAX package's dcn-v2 params (`repro.models.recsys.init_params`),
+    given as nested dicts and lists of numpy arrays, as the port's params on
+    `device`: `tables`, `cross[i].{w,b}` (or `{u,v,b}` when `cfg.cross_rank`
+    > 0), `mlp[i].{w,b}`, `out.{w,b}`, in `cfg.param_dtype` (biases float32,
+    as `init_params` makes them).  Raises on a missing, extra or misshapen
+    leaf."""
+    dev = resolve_device(device)
+    d0, r = cfg.d_input, cfg.cross_rank
+    cross = {"w": (d0, d0), "b": (d0,)} if r == 0 else {"u": (d0, r), "v": (r, d0), "b": (d0,)}
+    dims = [d0, *cfg.mlp_dims]
+    want = {
+        "tables": (cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim),
+        "cross": [cross] * cfg.n_cross_layers,
+        "mlp": [{"w": (a, b), "b": (b,)} for a, b in zip(dims[:-1], dims[1:])],
+        "out": {"w": (cfg.mlp_dims[-1], 1), "b": (1,)},
+    }
+
+    def to(node, shape, name):
+        if isinstance(shape, dict):
+            if not isinstance(node, dict) or set(node) != set(shape):
+                raise ValueError(f"{name}: keys {sorted(node) if isinstance(node, dict) else node!r}, "
+                                 f"want {sorted(shape)}")
+            return {k: to(node[k], s, f"{name}/{k}") for k, s in shape.items()}
+        if isinstance(shape, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(shape):
+                raise ValueError(f"{name}: want a list of {len(shape)}")
+            return [to(n, s, f"{name}/{i}") for i, (n, s) in enumerate(zip(node, shape))]
+        a = np.array(node, dtype=np.float32)  # a writable copy
+        if a.shape != shape:
+            raise ValueError(f"{name}: shape {a.shape}, want {shape}")
+        dtype = torch.float32 if name.endswith("/b") else cfg.param_dtype
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    return to(tree, want, cfg.name)

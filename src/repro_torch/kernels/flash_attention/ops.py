@@ -4,7 +4,10 @@ for a CPU tensor.
 `flash_attention` is the one entry point the models call.  Selection:
   impl="auto"  → "cuda" for a CUDA `q`, "ref" for a CPU `q`
   impl="cuda"  → the hand-written kernel `csrc/flash_attention.cu`; raises on
-                 a CPU tensor and on `kv_valid_len`, as the TPU kernel does
+                 a CPU tensor and on `kv_valid_len`, as the TPU kernel does,
+                 and, first of all, when grad is on and an input requires it:
+                 the kernel has no backward (neither has the TPU kernel), and
+                 its output would silently detach from the graph
   impl="ref"   → the blocked plain version `ref.flash_attention_ref`
   impl="naive" → the unblocked plain version (small shapes only)
 Nothing here catches a failure and falls back.  `flash_attention.launches`
@@ -48,6 +51,11 @@ def flash_attention(
         return flash_attention_ref(
             q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
             block_q=block_q, block_k=block_k, skip_masked_blocks=skip_masked_blocks,
+        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel has no backward, and an input requires grad; "
+            "use impl='ref' to differentiate (the kernel's backward is ROADMAP.md Queue B 4)"
         )
     if kv_valid_len is not None:
         raise NotImplementedError(

@@ -29,13 +29,20 @@ def ell_spmm(
     impl: str = "auto",
 ) -> torch.Tensor:
     """One ELL bucket: out[i] = Σ_j wts[i,j]·x[cols[i,j]], cols outside [0, N)
-    adding 0.  `impl="auto"`: the kernel for a CUDA `x`, `ref` for a CPU `x`."""
+    adding 0.  `impl="auto"`: the kernel for a CUDA `x`, `ref` for a CPU `x`.
+    The kernel has no backward: on its route, `x` or `wts` requiring grad
+    (with grad on) raises before anything else is checked."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; options: {'|'.join(IMPLS)}")
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "ref"
     if impl == "ref":
         return ell_spmm_ref(x, cols, wts)
+    if torch.is_grad_enabled() and (x.requires_grad or (wts is not None and wts.requires_grad)):
+        raise NotImplementedError(
+            "ell_spmm: the CUDA kernel has no backward, and an input requires grad; "
+            "use impl='ref' to differentiate (the kernel's backward is ROADMAP.md Queue B 4)"
+        )
     from repro_torch.kernels.segment_spmm.kernel import ell_spmm_cuda
 
     return ell_spmm_cuda(x, cols, wts)

@@ -14,7 +14,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import ARCH_IDS, get_arch
+from repro_torch.configs.registry import arch_ids, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import span
@@ -51,7 +51,7 @@ def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_se
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3.2-3b")
+    ap.add_argument("--arch", choices=arch_ids("lm"), default="llama3.2-3b")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.structs import build_ell
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
@@ -152,3 +154,91 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take():
     assert flash_attention.launches == before
     got = flash_attention(q, k, v, kv_valid_len=torch.tensor([10], device="cuda"), impl="ref")
     assert got.shape == q.shape and flash_attention.launches == before
+
+
+# ------------------------------------------------------------ embedding bag
+
+# (T, V, D, B, L): tests/test_kernels.py's four, dcn-v2's D = 16 at a small
+# vocab, a D with no 16-byte rows (the scalar path), and bags longer than the
+# kernel's gather chunk of 4
+BAG_SHAPES = [(3, 64, 128, 4, 5), (2, 32, 16, 8, 1), (1, 100, 256, 2, 7), (4, 17, 8, 3, 2),
+              (26, 1000, 16, 512, 1), (3, 50, 33, 7, 3), (2, 40, 8, 9, 9)]
+
+
+def _bag_inputs(t, v, d, b, l, seed=0):
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.standard_normal((t, v, d)).astype(np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(-2, v, (b, t, l)).astype(np.int32)).cuda()  # with padding ids
+    w = torch.from_numpy(rng.standard_normal((b, t, l)).astype(np.float32)).cuda()
+    return tables, ids, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,V,D,B,L", BAG_SHAPES)
+def test_embedding_bag_matches_plain_version(T, V, D, B, L, dtype, weighted):
+    _need_card()
+    tables, ids, w = _bag_inputs(T, V, D, B, L)
+    tables, w = tables.to(dtype), (w if weighted else None)
+    before = embedding_bag.launches
+    got = embedding_bag(tables, ids, w)
+    assert embedding_bag.launches == before + 1
+    want = embedding_bag_ref(tables, ids, w)
+    assert got.dtype == dtype and got.shape == (B, T, D)
+    torch.testing.assert_close(got.float(), want.float(), **(TOL if dtype == torch.float32 else BF16_TOL))
+    assert torch.equal(got, embedding_bag(tables, ids, w))  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,V,D,B,L", BAG_SHAPES[:4])
+def test_embedding_bag_gradients_match_autograd_through_the_plain_version(T, V, D, B, L):
+    _need_card()
+    tables, ids, w = _bag_inputs(T, V, D, B, L, seed=1)
+    g = torch.randn((B, T, D), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    t1, w1 = tables.clone().requires_grad_(), w.clone().requires_grad_()
+    before = embedding_bag.launches
+    (embedding_bag(t1, ids, w1) * g).sum().backward()
+    assert embedding_bag.launches == before + 1  # the forward is the kernel
+    t2, w2 = tables.clone().requires_grad_(), w.clone().requires_grad_()
+    (embedding_bag_ref(t2, ids, w2) * g).sum().backward()
+    torch.testing.assert_close(t1.grad, t2.grad, **TOL)
+    torch.testing.assert_close(w1.grad, w2.grad, **TOL)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    tables, ids, w = _bag_inputs(2, 32, 16, 4, 3)
+    before = embedding_bag.launches
+    with pytest.raises(TypeError):
+        embedding_bag(tables, ids.long())  # int32 ids only, no silent cast
+    with pytest.raises(TypeError):
+        embedding_bag(tables.double(), ids)
+    with pytest.raises(TypeError):
+        embedding_bag(tables, ids, w.double())
+    with pytest.raises(ValueError):
+        embedding_bag(tables, ids, w[..., :2])
+    with pytest.raises(ValueError):
+        embedding_bag(tables, ids.transpose(0, 2).contiguous().transpose(0, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        embedding_bag(tables, ids.cpu())
+    assert embedding_bag.launches == before
+    assert embedding_bag(tables, ids[:0]).shape == (0, 2, 16) and embedding_bag.launches == before
+    torch.testing.assert_close(embedding_bag(tables, ids.long(), impl="ref"), embedding_bag(tables, ids))
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_grad_on_the_card():
+    _need_card()
+    q, k, v = _attn_inputs(1, 64, 64, 4, 2, 64, torch.bfloat16)
+    x, cols, wts = _inputs(50, 16, 8, 16)
+    before = (flash_attention.launches, ell_spmm.launches)
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        ell_spmm(x.requires_grad_(), cols, wts)
+    assert (flash_attention.launches, ell_spmm.launches) == before
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == q.shape
+        assert ell_spmm(x, cols, wts).shape == (16, 16)

@@ -35,9 +35,15 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/configs/registry.py", "src/repro_torch/models/layers.py",
                  "src/repro_torch/models/transformer.py", "src/repro_torch/kernels/flash_attention/ref.py",
                  "src/repro_torch/kernels/flash_attention/kernel.py", "src/repro_torch/kernels/flash_attention/ops.py",
-                 "src/repro_torch/serve/engine.py", "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/serve/engine.py", "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/kernels/embedding_bag/ref.py", "src/repro_torch/kernels/embedding_bag/kernel.py",
+                 "src/repro_torch/kernels/embedding_bag/ops.py", "src/repro_torch/models/recsys.py",
+                 "src/repro_torch/configs/dcn_v2.py", "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/train/optim.py", "src/repro_torch/train/checkpoint.py",
+                 "src/repro_torch/train/loop.py", "src/repro_torch/train/pytree.py",
+                 "src/repro_torch/launch/train.py"):
         assert must in names
-    for cu in ("ell_spmm.cu", "flash_attention.cu"):
+    for cu in ("ell_spmm.cu", "flash_attention.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
 
 
@@ -110,6 +116,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.graph.vertex_program import run, run_traced
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import build_engine
+    from repro_torch.data.pipeline import RecsysPipeline, to_device
+    from repro_torch.launch.train import train
+    from repro_torch.models import recsys as rec
     from repro_torch.models import transformer as tfm
     import numpy as np
 
@@ -127,6 +136,9 @@ def test_entry_points_default_to_the_card():
         lambda: tfm.init_params(cfg),
         lambda: tfm.init_kv_cache(cfg, 2, 16),
         lambda: build_engine(cfg, params, slots=2, max_seq=16),
+        lambda: rec.init_params(get_arch("dcn-v2").smoke_config()),
+        lambda: train("dcn-v2", smoke=True, steps=1),
+        lambda: to_device(next(iter(RecsysPipeline(2, 3, 10, 4)))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -152,6 +164,44 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
     q = torch.ones((1, 5, 4, 32))
     out = flash_attention(q, torch.ones((1, 5, 2, 32)), torch.ones((1, 5, 2, 32)))
     assert out.shape == q.shape and flash_attention.launches == before
+
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+
+    assert isinstance(embedding_bag.launches, int)
+    before = embedding_bag.launches
+    tables = torch.ones((3, 10, 16), requires_grad=True)
+    out = embedding_bag(tables, torch.tensor([[[1, -1], [2, 10], [0, 0]]], dtype=torch.int32))
+    out.sum().backward()  # the plain route, through the autograd.Function
+    assert out.shape == (1, 3, 16) and embedding_bag.launches == before
+    assert out[0, :, 0].tolist() == [1.0, 1.0, 2.0]  # padding ids add 0
+    assert float(tables.grad.sum()) == 4 * 16
+
+
+def test_kernels_without_a_backward_refuse_grad_before_anything_else():
+    """`flash_attention` and `ell_spmm` on the CUDA route would silently
+    detach their output from the graph: with grad on and an input that
+    requires it they raise, before the device check — so this runs on the
+    CPU.  Without grad (or on the plain route) the same call goes on."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm
+
+    q = torch.ones((1, 4, 2, 32), requires_grad=True)
+    kv = torch.ones((1, 4, 2, 32))
+    x = torch.ones((6, 16), requires_grad=True)
+    cols = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="impl='ref'.*Queue B 4"):
+        flash_attention(q, kv, kv, impl="cuda")
+    with pytest.raises(NotImplementedError, match="impl='ref'.*Queue B 4"):
+        ell_spmm(x, cols, impl="cuda")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ell_spmm(x.detach(), cols, torch.ones((3, 2), requires_grad=True), impl="cuda")
+    with torch.no_grad():  # no grad: the device check speaks
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(q, kv, kv, impl="cuda")
+        with pytest.raises(ValueError, match="CUDA"):
+            ell_spmm(x, cols, impl="cuda")
+    assert flash_attention(q, kv, kv, impl="ref").requires_grad
+    assert ell_spmm(x, cols, impl="ref").requires_grad
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

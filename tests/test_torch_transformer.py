@@ -13,7 +13,7 @@ import torch
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.models import transformer as jtfm
 from repro_torch import interop
-from repro_torch.configs.registry import ARCH_IDS, PENDING, get_arch
+from repro_torch.configs.registry import PENDING, arch_ids, get_arch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import transformer as tfm
 
@@ -145,7 +145,7 @@ def test_cast_params_is_bit_identical():
     assert torch.equal(tfm.forward(cast, toks, cfg), tfm.forward(p, toks, cfg))
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", arch_ids("lm"))
 def test_configs_and_param_counts_equal_jax(arch):
     for which in ("model_config", "smoke_config"):
         jcfg, cfg = getattr(jax_get_arch(arch), which)(), getattr(get_arch(arch), which)()
