@@ -11,7 +11,8 @@ and read just after:
   simulator) on the Table-2 workload `amazon` at its published size (304,000
   nodes, 4,300,000 edges), on the `paper` grid's 12 configurations for it
   (bfs/sssp/pagerank × mesh2d/fbutterfly × proposed vs randomized baseline, 16
-  engines); its kernel is `ell_spmm`;
+  engines); its kernel is `segment_spmm` (every ELL bucket of a PageRank
+  reduce in one launch, `csrc/ell_spmm.cu`);
 * LM serving: `repro_torch.launch.serve.build_engine` on llama3.2-3b at its
   published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
@@ -30,15 +31,20 @@ Phases, one JSON line each:
 
   probe      the card and the toolchain
   build      `nvcc` on every source of `src/repro_torch/csrc/`, all at once
-  kernels    `ell_spmm` against its plain PyTorch version (test shapes, every
-             real ELL bucket of the full-size graph, two runs bit-equal) and
-             its time beside the byte bound and `torch.sparse.mm`
+  kernels    `ell_spmm` (one bucket) against its plain PyTorch version (test
+             shapes, every real ELL bucket of the full-size graph, two runs
+             bit-equal); the fused `segment_spmm` reduce against the
+             per-bucket route (bit-equal), the plain reader of the flat
+             layout and `torch.sparse.mm`, one launch a reduce, isolated
+             vertices 0; its time beside the per-bucket route's, the byte
+             bound and `torch.sparse.mm` (call and CUDA-graph replay)
   engine     `run_traced` for the three algorithms against host references
   sweep      `run_sweep` with the torch backend against the numpy backend
   attention  `flash_attention` against its plain version (test shapes, f32
-             and bf16, and the serve path's shapes; two runs bit-equal) and
-             its time beside the operation bound and
-             `scaled_dot_product_attention`
+             and bf16, and the serve path's shapes; two runs bit-equal), its
+             time and TFLOP/s at every path shape beside the operation bound
+             and `scaled_dot_product_attention` (call and CUDA-graph
+             replay), and the bf16 kernel's registers and shared memory
   serve      the serve path, its throughput, and full-width logit checks
   embedding_bag  `embedding_bag` against its plain version (test shapes, f32
              and bf16, weighted or not; autograd gradients of tables and
@@ -94,7 +100,7 @@ KERNEL_REPLACES = "src/repro/kernels/segment_spmm/kernel.py:51"
 # flash attention: tests/test_kernels.py:24-29 (B, Sq, Skv, Hq, Hkv, dh), and
 # the serve path's q (1, S, 24, 128), k/v (1, S, 8, 128) bf16 at these S
 ATTN_TEST_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32), (2, 96, 160, 4, 4, 64),
-                    (1, 200, 200, 6, 2, 128)]
+                    (1, 200, 200, 6, 2, 128), (2, 1000, 1100, 16, 4, 64)]  # the last: ragged 128-row q tiles
 ATTN_PATH_S = (512, 2048, 3072)
 ATTN_TIMED_S = 2048
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -220,11 +226,41 @@ def bucket_bound_ms(x: torch.Tensor, cols: torch.Tensor, wts: torch.Tensor | Non
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def reduce_bound_ms(x: torch.Tensor, ell) -> tuple[float, str]:
+    """Least time for one whole `segment_spmm` reduce on these inputs: the flat
+    cols, weights and rows, the work table and the zero list read once, each
+    gathered x row once, the (N, D) output written once, over the memory rate,
+    against multiply-adds on the real entries over the f32 rate."""
+    n, d = x.shape
+    work = ell.work()
+    real = work.cols[(work.cols >= 0) & (work.cols < n)]
+    item = x.element_size()
+    nbytes = (work.cols.numel() + work.rows.numel() + work.zero_rows.numel()) * 4 + work.items.numel() * 8
+    nbytes += (work.weights.numel() * 4 if work.weights is not None else 0)
+    nbytes += int(torch.unique(real).numel()) * d * item + n * d * item
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2.0 * real.numel() * d / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def per_bucket_reduce(x: torch.Tensor, ell) -> torch.Tensor:
+    """The reduce as PR 13's engine ran it: a zeroed (N+1, D) buffer, one
+    `ell_spmm` launch and one scatter a bucket, the sentinel row sliced off."""
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm
+
+    n = x.shape[0]
+    out = torch.zeros((n + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    for b in range(ell.num_buckets):
+        if ell.cols[b].shape[0]:
+            out[ell.rows[b].long().clamp(max=n)] = ell_spmm(x, ell.cols[b], ell.weights[b])
+    return out[:n]
+
+
 def phase_kernels(device: torch.device, graph, timer: Timer) -> dict:
     from repro_torch.graph.algorithms import prepare_graph
     from repro_torch.graph.structs import build_ell
-    from repro_torch.kernels.segment_spmm.ops import ell_spmm
-    from repro_torch.kernels.segment_spmm.ref import ell_spmm_ref
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import ell_spmm_ref, segment_spmm_ref
 
     max_err = {"f32": 0.0, "bf16": 0.0}
     cases = 0
@@ -262,7 +298,6 @@ def phase_kernels(device: torch.device, graph, timer: Timer) -> dict:
     x = torch.from_numpy(rng.random((n, 1)).astype(np.float32)).to(device)
     buckets = []
     real_err = 0.0
-    tot_bound_ms = 0.0
     for b in range(ell.num_buckets):
         cols, wts = ell.cols[b], ell.weights[b]
         if cols.shape[0] == 0:
@@ -273,37 +308,44 @@ def phase_kernels(device: torch.device, graph, timer: Timer) -> dict:
         err = float((got - want).abs().max())
         check(torch.allclose(got, want, **F32_TOL), f"bucket W={ell.widths[b]}: max abs err {err}")
         real_err = max(real_err, err)
-        k_ms = timer.device_ms(lambda: ell_spmm(x, cols, wts))
-        c_ms = timer.call_ms(lambda: ell_spmm(x, cols, wts))
-        r_ms = timer.call_ms(lambda: ell_spmm_ref(x, cols, wts), calls=5, reps=5)
         bound, _ = bucket_bound_ms(x, cols, wts)
-        tot_bound_ms += bound
-        buckets.append({"W": ell.widths[b], "R": int(cols.shape[0]), "ms": k_ms, "call_ms": c_ms,
-                        "plain_ms": r_ms, "bound_ms": bound, "max_abs_err": err})
+        buckets.append({"W": ell.widths[b], "R": int(cols.shape[0]), "ms": timer.device_ms(lambda: ell_spmm(x, cols, wts)),
+                        "bound_ms": bound, "max_abs_err": err})
 
-    def one_reduce():
-        for b in range(ell.num_buckets):
-            if ell.cols[b].shape[0]:
-                ell_spmm(x, ell.cols[b], ell.weights[b])
+    # the whole reduce in one launch, against the per-bucket route (bit-equal:
+    # the same lanes and order a row), the plain reader of the flat layout, and
+    # at D = 16 as well; isolated vertices exactly 0
+    isolated = torch.from_numpy(np.setdiff1d(np.arange(n), pg.dst)).to(device)
+    fused_err = 0.0
+    for d in (1, 16):
+        xd = x if d == 1 else torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(device)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            xt = xd.to(dtype)
+            before = segment_spmm.launches
+            got = segment_spmm(xt, ell)
+            check(segment_spmm.launches == before + 1, "segment_spmm: one launch a reduce")
+            per_bucket, want = per_bucket_reduce(xt, ell), segment_spmm_ref(xt, ell)
+            torch.cuda.synchronize()
+            check(torch.equal(got, per_bucket), f"fused vs per-bucket route differ at D={d}, {dtype}")
+            check(bool((got[isolated] == 0).all()), "a vertex in no bucket is not 0")
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), **tol), f"fused vs plain reader at D={d}: {err}")
+            if dtype == torch.float32:
+                fused_err = max(fused_err, err)
+    before = segment_spmm.launches
+    segment_spmm(x, ell)
+    launches_per_reduce = segment_spmm.launches - before
+    check(launches_per_reduce == 1, f"a reduce launched {launches_per_reduce} kernels")
 
-    def one_reduce_plain():
-        for b in range(ell.num_buckets):
-            if ell.cols[b].shape[0]:
-                ell_spmm_ref(x, ell.cols[b], ell.weights[b])
-
-    # one reduce = every real bucket in sequence, as the engine runs them: the
-    # buckets' cols/wts together exceed the L2, so this is slower than the sum
-    # of the buckets timed alone (the `buckets` list), and it is the time kept
-    launches_before_timing = ell_spmm.launches
-    reduce_ms = timer.device_ms(one_reduce, calls=5)
-    reduce_call_ms = timer.call_ms(one_reduce, calls=5)
-    reduce_plain_ms = timer.call_ms(one_reduce_plain, calls=3, reps=5)
-    check(ell_spmm.launches > launches_before_timing, "timed calls must launch")
-    all_cols = torch.cat([c.reshape(-1) for c in ell.cols])
-    real_entries = int(((all_cols >= 0) & (all_cols < n)).sum())
-    ops_ms = 2.0 * real_entries / H100_F32_FLOPS * 1e3
-    bound_ms = max(tot_bound_ms, ops_ms)
-    bound_by = "bytes" if tot_bound_ms >= ops_ms else "operations"
+    reduce_ms = timer.device_ms(lambda: segment_spmm(x, ell), calls=10)
+    reduce_call_ms = timer.call_ms(lambda: segment_spmm(x, ell))
+    per_bucket_ms = timer.device_ms(lambda: per_bucket_reduce(x, ell), calls=5)
+    per_bucket_call_ms = timer.call_ms(lambda: per_bucket_reduce(x, ell), calls=5)
+    reduce_plain_ms = timer.call_ms(lambda: segment_spmm_ref(x, ell), calls=2, reps=3)
+    work = ell.work()
+    real_entries = int(((work.cols >= 0) & (work.cols < n)).sum())
+    bound_ms, bound_by = reduce_bound_ms(x, ell)
+    per_bucket_bound_ms = sum(bk["bound_ms"] for bk in buckets)
 
     # yardstick: one library call computing the same function (used nowhere in the port)
     idx = torch.from_numpy(np.stack([pg.dst, pg.src]).astype(np.int64)).to(device)
@@ -312,27 +354,33 @@ def phase_kernels(device: torch.device, graph, timer: Timer) -> dict:
         warnings.filterwarnings("ignore", message="Sparse")  # torch's beta notices
         a_csr = torch.sparse_coo_tensor(idx, val, (n, n)).coalesce().to_sparse_csr()
     lib = torch.sparse.mm(a_csr, x)
-    whole = torch.zeros((n + 1, 1), dtype=torch.float32, device=device)
-    for b in range(ell.num_buckets):
-        if ell.cols[b].shape[0]:
-            whole[ell.rows[b].long().clamp(max=n)] = ell_spmm(x, ell.cols[b], ell.weights[b])
+    whole = segment_spmm(x, ell)
     torch.cuda.synchronize()
-    lib_err = float((whole[:n] - lib).abs().max())
-    check(torch.allclose(whole[:n], lib, **F32_TOL), f"all buckets vs torch.sparse.mm: {lib_err}")
+    lib_err = float((whole - lib).abs().max())
+    check(torch.allclose(whole, lib, **F32_TOL), f"fused reduce vs torch.sparse.mm: {lib_err}")
     library_ms = timer.call_ms(lambda: torch.sparse.mm(a_csr, x))
+    library_device_ms = timer.device_ms(lambda: torch.sparse.mm(a_csr, x))
 
     out = {
         "test_cases": cases, "max_abs_err_f32": max_err["f32"], "max_abs_err_bf16": max_err["bf16"],
         "tolerance_f32": F32_TOL, "tolerance_bf16": BF16_TOL, "bit_equal_two_runs": True,
         "graph": {"nodes": n, "edges": graph.num_edges, "ell_fill": ell.fill_fraction(),
-                  "real_entries": real_entries, "D": 1},
+                  "real_entries": real_entries, "D": 1, "work_items": int(work.items.shape[0]),
+                  "vertices_in_no_bucket": int(work.zero_rows.numel())},
         "buckets": buckets, "real_bucket_max_abs_err": real_err,
-        "kernel_ms": reduce_ms, "kernel_call_ms": reduce_call_ms, "ref_ms": reduce_plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "timing": "warm medians with CUDA events. kernel_ms: one PageRank reduce, every real bucket "
-                  "in sequence, replayed from a CUDA graph (device time alone); kernel_call_ms, "
-                  "ref_ms, library_ms: the same reduce enqueued from Python (host enqueue cost "
-                  "included); buckets[]: each bucket alone, its cols/wts warm in the L2",
+        "fused_equals_per_bucket_route": True, "fused_max_abs_err_vs_plain": fused_err,
+        "launches_per_reduce": launches_per_reduce,
+        "kernel_ms": reduce_ms, "kernel_call_ms": reduce_call_ms, "per_bucket_reduce_ms": per_bucket_ms,
+        "per_bucket_reduce_call_ms": per_bucket_call_ms, "ref_ms": reduce_plain_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms, "library_max_abs_err": lib_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "per_bucket_bound_ms": per_bucket_bound_ms,
+        "timing": "warm medians with CUDA events. kernel_ms: one whole segment_spmm reduce (output "
+                  "allocation and the one fused launch) replayed from a CUDA graph (device time alone); "
+                  "per_bucket_reduce_ms: PR 13's route (zeroed buffer, 12 ell_spmm launches, 12 scatters, "
+                  "slice), the same way; library_device_ms: torch.sparse.mm (CSR) the same way; *_call_ms, "
+                  "ref_ms, library_ms: calls enqueued from Python (host enqueue cost included); buckets[]: "
+                  "each bucket's ell_spmm alone, its cols/wts warm in the L2. bound_ms: the whole reduce's "
+                  "inputs read once; per_bucket_bound_ms: the sum of the buckets' bounds (PR 13's bound)",
     }
     say("kernels", **out)
     return out
@@ -347,7 +395,7 @@ def phase_engine(device: torch.device, graph, small_graph) -> dict:
 
     from repro_torch.graph import algorithms as alg
     from repro_torch.graph.vertex_program import run_traced
-    from repro_torch.kernels.segment_spmm.ops import ell_spmm
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
     out: dict = {}
 
@@ -358,10 +406,10 @@ def phase_engine(device: torch.device, graph, small_graph) -> dict:
         t: dict = {}
         prepared, program = alg.prepare_graph(name, g), alg.ALGORITHMS[name]()
         run_traced(prepared, program, max_iterations=2, device=device, **kw)
-        t["launches_before"] = ell_spmm.launches
+        t["launches_before"] = segment_spmm.launches
         tr = run_traced(prepared, program, max_iterations=40 if name == "pagerank" else 200,
                         device=device, timings=t, **kw)
-        traced.launches = ell_spmm.launches - t["launches_before"]
+        traced.launches = segment_spmm.launches - t["launches_before"]
         return tr, t["loop_s"], t["prepare_s"]
 
     # BFS: the pure-Python frontier reference at a twentieth of the size, scipy at full size
@@ -388,7 +436,8 @@ def phase_engine(device: torch.device, graph, small_graph) -> dict:
     # PageRank: the kernel's sum against index_add_ and against the host reference
     tr_ell, secs_ell, prep_ell = traced("pagerank", graph, reduce_impl="ell")
     launches = traced.launches  # of the timed run alone
-    check(launches > 0, "pagerank did not launch ell_spmm")
+    check(launches == tr_ell.num_iterations,
+          f"pagerank launched segment_spmm {launches} times in {tr_ell.num_iterations} iterations, want one each")
     tr_sc, secs_sc, prep_sc = traced("pagerank", graph, reduce_impl="scatter")
     ref = alg.reference_pagerank(alg.prepare_graph("pagerank", graph))
     rel = float(np.max(np.abs(tr_ell.props - tr_sc.props) / np.abs(tr_sc.props)))
@@ -396,12 +445,14 @@ def phase_engine(device: torch.device, graph, small_graph) -> dict:
     l1 = float(np.abs(tr_ell.props.astype(np.float64) - ref).sum())
     check(np.allclose(tr_ell.props, ref, atol=1e-4) and l1 <= 1e-3, f"pagerank vs reference: L1 {l1}")
     check(abs(float(tr_ell.props.sum()) - float(tr_sc.props.sum())) < 1e-3, "pagerank mass")
+    check(tr_ell.num_iterations == tr_sc.num_iterations, "pagerank: ell and scatter iteration counts differ")
+    check(bool(np.array_equal(tr_ell.edge_activity, tr_sc.edge_activity)), "pagerank: edge_activity differs")
     out["pagerank"] = {
         "iterations_ell": tr_ell.num_iterations, "iterations_scatter": tr_sc.num_iterations,
         "s_per_iteration_ell": secs_ell / tr_ell.num_iterations,
         "s_per_iteration_scatter": secs_sc / tr_sc.num_iterations,
         "prepare_s_ell": prep_ell, "prepare_s_scatter": prep_sc,
-        "ell_spmm_launches": launches, "max_rel_err_ell_vs_scatter": rel, "l1_vs_reference": l1,
+        "segment_spmm_launches": launches, "max_rel_err_ell_vs_scatter": rel, "l1_vs_reference": l1,
         "edge_activity_equal": bool(np.array_equal(tr_ell.edge_activity, tr_sc.edge_activity)),
     }
     say("engine", **out)
@@ -415,15 +466,16 @@ def phase_sweep(device: torch.device, grid, graph, smi: str | None) -> tuple[dic
     from repro_torch.experiments.batched import simulate_batch
     from repro_torch.experiments.placement_batch import place_batch
     from repro_torch.experiments.sweep import figure_comparisons, run_sweep
-    from repro_torch.kernels.segment_spmm.ops import ell_spmm
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
 
-    ell_spmm.launches = 0  # the main path's own count starts here
+    segment_spmm.launches = ell_spmm.launches = 0  # the main path's own count starts here
     torch.cuda.synchronize()
     res = run_sweep(grid, backend="torch", device=device, measure_serial=True,
                     graphs={"amazon": graph}, keep_artifacts=True)
     torch.cuda.synchronize()
-    launches = ell_spmm.launches
-    check(launches > 0, "run_sweep launched ell_spmm no time")
+    launches = segment_spmm.launches
+    check(launches > 0, "run_sweep launched segment_spmm no time")
+    check(ell_spmm.launches == 0, "run_sweep launched the one-bucket kernel")
     configs = grid.expand()
     check(len(res.records) == len(configs), "a record for every configuration")
     for r in res.records:
@@ -459,7 +511,7 @@ def phase_sweep(device: torch.device, grid, graph, smi: str | None) -> tuple[dic
         "placement_sites_equal_numpy": sites_equal, "simulate_max_rel_diff_vs_numpy": worst,
         "min_speedup": min(c["speedup"] for c in comps), "max_speedup": max(c["speedup"] for c in comps),
         "timings_s": res.timings, "placement_stats": res.placement_stats,
-        "ell_spmm_launches": launches, "card": smi,
+        "segment_spmm_launches": launches, "card": smi,
     }
     say("sweep", **out)
     return out, launches
@@ -468,18 +520,22 @@ def phase_sweep(device: torch.device, grid, graph, smi: str | None) -> tuple[dic
 # --------------------------------------------------------------------------- attention
 
 
-def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
-    """Least time for one `flash_attention` call on these inputs: q, k, v read
-    once and the output written once over the memory rate, against the
-    multiply-adds of QKᵀ and P·V on the score pairs the mask keeps over the
-    tensor-core (bf16) or CUDA-core (f32) rate."""
+def attention_flops(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> float:
+    """The multiply-adds (×2) of QKᵀ and P·V on the score pairs the mask keeps."""
     b, sq, hq, dh = q.shape
     skv = k.shape[1]
     if causal:  # query row i keeps keys 0 .. i + q_offset
         pairs = sum(min(skv, max(0, i + q_offset + 1)) for i in range(sq))
     else:
         pairs = sq * skv
-    flops = 4.0 * b * hq * dh * pairs
+    return 4.0 * b * hq * dh * pairs
+
+
+def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
+    """Least time for one `flash_attention` call on these inputs: q, k, v read
+    once and the output written once over the memory rate, against
+    `attention_flops` over the tensor-core (bf16) or CUDA-core (f32) rate."""
+    flops = attention_flops(q, k, causal, q_offset)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_ops = flops / (H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -489,6 +545,7 @@ def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset:
 def phase_attention(device: torch.device, timer: Timer) -> dict:
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.kernel import kernel_info
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -520,17 +577,26 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
                 max_err[tag] = max(max_err[tag], err)
                 cases += 1
 
+    # yardstick, used nowhere in the port: one library call in its own (B, H, S, dh) layout
+    def library(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
     path = []
     timed = None
     for s in ATTN_PATH_S:
         q, k, v = qkv(1, s, s, 24, 8, 128, torch.bfloat16)
         err = held(q, k, v, True, 0, BF16_TOL, ("path", s))
         bound, by = attention_bound_ms(q, k, True, 0)
-        path.append({"S": s, "max_abs_err": err, "ms": timer.device_ms(lambda: flash_attention(q, k, v, causal=True)),
-                     "bound_ms": bound, "bound_by": by})
+        ms = timer.device_ms(lambda: flash_attention(q, k, v, causal=True))
+        lib = library(q, k, v)
+        path.append({"S": s, "max_abs_err": err, "ms": ms, "tflops": attention_flops(q, k, True, 0) / (ms * 1e-3) / 1e12,
+                     "bound_ms": bound, "bound_by": by, "library_ms": timer.call_ms(lib),
+                     "library_device_ms": timer.device_ms(lib)})
         if s == ATTN_TIMED_S:
             timed = (q, k, v)
     path_err = max(p["max_abs_err"] for p in path)
+    resources = {f"dh128_q{64 * nc}": kernel_info(128, nc) for nc in (1, 2)}
 
     q, k, v = timed
     refused = False
@@ -544,14 +610,14 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
     ms = timer.device_ms(lambda: flash_attention(q, k, v, causal=True))
     call_ms = timer.call_ms(lambda: flash_attention(q, k, v, causal=True))
     plain_ms = timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=3, reps=5)
-    # yardstick, used nowhere in the port: one library call in its own (B, H, S, dh) layout
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_fn = library(q, k, v)
+    lib = lib_fn().transpose(1, 2)
     ours = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     lib_err = float((lib.float() - ours.float()).abs().max())
     check(torch.allclose(lib.float(), ours.float(), **BF16_TOL), f"kernel vs scaled_dot_product_attention: {lib_err}")
-    library_ms = timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    library_ms = timer.call_ms(lib_fn)
+    library_device_ms = timer.device_ms(lib_fn)
     bound_ms, bound_by = attention_bound_ms(q, k, True, 0)
     out = {
         "test_cases": cases, "max_abs_err_f32": max_err["f32"], "max_abs_err_bf16": max_err["bf16"],
@@ -559,11 +625,16 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
         "kv_valid_len_refused": refused, "path": path, "path_max_abs_err": path_err,
         "timed_shape": {"q": list(q.shape), "k": list(k.shape), "dtype": "bfloat16", "causal": True},
         "kernel_ms": ms, "kernel_call_ms": call_ms, "ref_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_device_ms,
         "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
-        "achieved_tflops": 4.0 * 24 * 128 * ATTN_TIMED_S * (ATTN_TIMED_S + 1) / 2 / (ms * 1e-3) / 1e12,
-        "timing": "warm medians with CUDA events. kernel_ms and path[].ms: device time, replayed from a "
-                  "CUDA graph; kernel_call_ms, ref_ms, library_ms: calls enqueued back to back from Python. "
-                  "library: scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies",
+        "achieved_tflops": attention_flops(q, k, True, 0) / (ms * 1e-3) / 1e12,
+        "library_device_tflops": attention_flops(q, k, True, 0) / (library_device_ms * 1e-3) / 1e12,
+        "kernel_resources": resources,
+        "timing": "warm medians with CUDA events. kernel_ms, path[].ms, library_device_ms: device time, "
+                  "replayed from a CUDA graph; kernel_call_ms, ref_ms, library_ms: calls enqueued back to back "
+                  "from Python. library: scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) "
+                  "copies made once. kernel_resources: cudaFuncGetAttributes of the bf16 kernel (registers at "
+                  "launch; the consumer warpgroups raise theirs to 232 with setmaxnreg at 128-row tiles)",
     }
     say("attention", **out)
     return out
@@ -594,7 +665,7 @@ def profile_window(fn) -> dict:
     rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key), reverse=True)
     total = sum(r[0] for r in rows) / 1e3
-    attn = sum(r[0] for r in rows if "attn_bf16_mma" in r[1]) / 1e3
+    attn = sum(r[0] for r in rows if "attn_bf16_wgmma" in r[1]) / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": total, "device_busy_share": total / (wall * 1e3),
             "flash_attention_ms": attn,
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
@@ -719,6 +790,7 @@ def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict,
     # where the time goes: one prefill (request 0's prompt, slot 0) and 8 decode steps
     pos = torch.from_numpy(engine.pos.astype(np.int64))
     prof_prefill = profile_window(lambda: prefill_one(engine.cache, 0, toks.cpu()))
+    check(prof_prefill["flash_attention_ms"] > 0, "the prefill profile found no flash-attention kernel by name")
     step_tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long)
 
     def eight_steps():
@@ -1137,7 +1209,9 @@ def main() -> int:
         "ms": kern["kernel_ms"], "call_ms": kern["kernel_call_ms"], "plain_ms": kern["ref_ms"],
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-        "shape": "every real ELL bucket of amazon (PageRank weights) at D=1, one reduce in sequence",
+        "library_device_ms": kern["library_device_ms"], "per_bucket_reduce_ms": kern["per_bucket_reduce_ms"],
+        "launches_per_reduce": kern["launches_per_reduce"], "entry": "segment_spmm_launch (every bucket, one launch)",
+        "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
     }, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": fa_launches,
@@ -1145,6 +1219,7 @@ def main() -> int:
         "max_abs_err_f32": attn["max_abs_err_f32"],
         "ms": attn["kernel_ms"], "call_ms": attn["kernel_call_ms"], "plain_ms": attn["ref_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
+        "library_device_ms": attn["library_device_ms"], "achieved_tflops": attn["achieved_tflops"],
         "shape": f"llama3.2-3b prefill attention: q (1, {ATTN_TIMED_S}, 24, 128), k/v (1, {ATTN_TIMED_S}, 8, 128) "
                  "bf16, causal",
     }, {

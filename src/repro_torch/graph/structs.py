@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["HostGraph", "EdgeList", "Csr", "EllBlocks", "to_device_edges", "build_ell"]
+__all__ = ["HostGraph", "EdgeList", "Csr", "EllBlocks", "EllWork", "to_device_edges", "build_ell"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +132,45 @@ def to_device_edges(
     )
 
 
+# The fused reduce's work items (`EllWork.items`): a row of ELL_ITEM_SLOTS
+# slots or more, or any row of width ELL_HUB_WIDTH or more (a hub), is an item
+# of its own; narrower rows are cut into items of ELL_ITEM_SLOTS // width rows.
+# `csrc/ell_spmm.cu` gives each item one block (kBlockRowW there is
+# ELL_HUB_WIDTH).
+ELL_ITEM_SLOTS = 2048
+ELL_HUB_WIDTH = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class EllWork:
+    """Every bucket of an `EllBlocks` in one flat layout, as one fused launch
+    reads it.  Buckets follow each other in `rows` (row after row) and in
+    `cols`/`weights` (row-major, each row `width` slots); `items` is (n_items,
+    4) int64: first row (an index into `rows`), row count, width, offset of the
+    first row's slots in `cols`/`weights`.  Items are in descending width, so
+    hub rows start first; every real row of every bucket is in exactly one
+    item.  `zero_rows` lists the vertices that are in no bucket (in-degree 0):
+    their output row is 0."""
+
+    rows: torch.Tensor  # int32 (Σ R_b,)
+    cols: torch.Tensor  # int32 (Σ R_b·W_b,)
+    weights: torch.Tensor | None  # float32 (Σ R_b·W_b,)
+    items: torch.Tensor  # int64 (n_items, 4)
+    zero_rows: torch.Tensor  # int32 (n_zero,)
+
+
+def _work_items(counts: list[int], widths: list[int]) -> np.ndarray:
+    row0 = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    slot0 = np.concatenate([[0], np.cumsum(np.asarray(counts, np.int64) * np.asarray(widths, np.int64))])
+    items = []
+    for b in sorted(range(len(widths)), key=lambda k: -widths[k]):
+        w, r = widths[b], counts[b]
+        per = 1 if w >= ELL_HUB_WIDTH else max(1, ELL_ITEM_SLOTS // w)
+        for i in range(0, r, per):
+            items.append((row0[b] + i, min(per, r - i), w, slot0[b] + i * w))
+    return np.asarray(items, dtype=np.int64).reshape(-1, 4)
+
+
 @dataclasses.dataclass
 class EllBlocks:
     """Degree-binned ELL: bucket b holds rows whose (power-law sorted) degree
@@ -141,6 +180,10 @@ class EllBlocks:
     Padding overhead is bounded by 2× per bucket (power-of-two widths) and in
     practice ~1.2× on power-law graphs because the degree sort makes buckets
     tight — the measured overhead is reported by `fill_fraction`.
+
+    `build_ell` stores every bucket in one flat buffer each for rows, cols and
+    weights (the per-bucket tensors are views into them); `work()` returns
+    that layout with its work table.
     """
 
     num_nodes: int
@@ -148,19 +191,31 @@ class EllBlocks:
     cols: list[torch.Tensor]  # int32 (rows_b, width_b)
     weights: list[torch.Tensor] | None  # float32 (rows_b, width_b)
     widths: list[int]
-    _scatter_rows: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _flat: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+    _work: EllWork | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def num_buckets(self) -> int:
         return len(self.widths)
 
-    def scatter_rows(self, b: int) -> torch.Tensor:
-        """Bucket b's `rows` as an int64 store index with padded rows sent to
-        the sentinel row N (made once per bucket and kept)."""
-        idx = self._scatter_rows.get(b)
-        if idx is None:
-            idx = self._scatter_rows[b] = self.rows[b].long().clamp(max=self.num_nodes)
-        return idx
+    def work(self) -> EllWork:
+        """The flat layout and work table of the fused reduce (made once and
+        kept; from the flat buffers of `build_ell` without a copy, else by
+        concatenating the buckets)."""
+        if self._work is None:
+            if self._flat is not None:
+                rows, cols, wts = self._flat
+            else:
+                rows = torch.cat([r.reshape(-1) for r in self.rows])
+                cols = torch.cat([c.reshape(-1) for c in self.cols])
+                wts = None if self.weights is None else torch.cat([w.reshape(-1) for w in self.weights])
+            counts = [int(r.shape[0]) for r in self.rows]
+            items = torch.from_numpy(_work_items(counts, self.widths)).to(rows.device)
+            in_bucket = torch.zeros(self.num_nodes + 1, dtype=torch.bool, device=rows.device)
+            in_bucket[rows.long().clamp(0, self.num_nodes)] = True
+            zero_rows = (~in_bucket[: self.num_nodes]).nonzero().reshape(-1).to(torch.int32)
+            self._work = EllWork(rows, cols, wts, items, zero_rows)
+        return self._work
 
     def fill_fraction(self) -> float:
         real = sum(int((c != self.num_nodes).sum()) for c in self.cols)
@@ -190,37 +245,49 @@ def build_ell(
         w <<= 1
     widths.append(max_width)
 
-    rows_out, cols_out, wts_out = [], [], []
     has_w = csr.weight is not None
     bucket_of = np.searchsorted(np.array(widths), np.maximum(deg, 1))
     bucket_of = np.minimum(bucket_of, len(widths) - 1)
-    for b, width in enumerate(widths):
-        vs = np.nonzero((bucket_of == b) & (deg > 0))[0]
-        if vs.size == 0:
-            rows_out.append(torch.zeros((0,), dtype=torch.int32, device=dev))
-            cols_out.append(torch.zeros((0, width), dtype=torch.int32, device=dev))
-            wts_out.append(torch.zeros((0, width), dtype=torch.float32, device=dev))
-            continue
-        n_rows = int(np.ceil(vs.size / row_align) * row_align)
-        cols = np.full((n_rows, width), g.num_nodes, dtype=np.int64)
-        wts = np.zeros((n_rows, width), dtype=np.float32)
-        rows = np.full(n_rows, g.num_nodes, dtype=np.int64)
-        rows[: vs.size] = vs
-        # vectorised ragged gather: position (i, k) reads indices[indptr[v_i]+k]
-        # when k < deg[v_i], else stays at the sentinel.
-        pos = csr.indptr[vs][:, None] + np.arange(width)[None, :]
-        mask = np.arange(width)[None, :] < deg[vs][:, None]
-        pos = np.minimum(pos, csr.indices.size - 1)
-        cols[: vs.size] = np.where(mask, csr.indices[pos], g.num_nodes)
+    members = [np.nonzero((bucket_of == b) & (deg > 0))[0] for b in range(len(widths))]
+    counts = [int(np.ceil(vs.size / row_align) * row_align) for vs in members]
+    slots = [r * w for r, w in zip(counts, widths)]
+    # one flat buffer each; bucket b's rows/cols/wts are views into them
+    rows_flat = np.full(sum(counts), g.num_nodes, dtype=np.int32)
+    cols_flat = np.full(sum(slots), g.num_nodes, dtype=np.int32)
+    wts_flat = np.zeros(sum(slots), dtype=np.float32)
+    r0 = s0 = 0
+    for b, (vs, width) in enumerate(zip(members, widths)):
+        if vs.size:
+            rows_flat[r0 : r0 + vs.size] = vs
+            # vectorised ragged gather: position (i, k) reads indices[indptr[v_i]+k]
+            # when k < deg[v_i], else stays at the sentinel.
+            pos = csr.indptr[vs][:, None] + np.arange(width)[None, :]
+            mask = np.arange(width)[None, :] < deg[vs][:, None]
+            pos = np.minimum(pos, csr.indices.size - 1)
+            block = cols_flat[s0 : s0 + slots[b]].reshape(counts[b], width)
+            block[: vs.size] = np.where(mask, csr.indices[pos], g.num_nodes)
+            if has_w:
+                wblock = wts_flat[s0 : s0 + slots[b]].reshape(counts[b], width)
+                wblock[: vs.size] = np.where(mask, csr.weight[pos], 0.0)
+        r0 += counts[b]
+        s0 += slots[b]
+    rows_t = torch.from_numpy(rows_flat).to(dev)
+    cols_t = torch.from_numpy(cols_flat).to(dev)
+    wts_t = torch.from_numpy(wts_flat).to(dev) if has_w else None
+    rows_out, cols_out, wts_out = [], [], []
+    r0 = s0 = 0
+    for r, width, n_slots in zip(counts, widths, slots):
+        rows_out.append(rows_t[r0 : r0 + r])
+        cols_out.append(cols_t[s0 : s0 + n_slots].view(r, width))
         if has_w:
-            wts[: vs.size] = np.where(mask, csr.weight[pos], 0.0)
-        rows_out.append(torch.from_numpy(rows.astype(np.int32)).to(dev))
-        cols_out.append(torch.from_numpy(cols.astype(np.int32)).to(dev))
-        wts_out.append(torch.from_numpy(wts).to(dev))
+            wts_out.append(wts_t[s0 : s0 + n_slots].view(r, width))
+        r0 += r
+        s0 += n_slots
     return EllBlocks(
         g.num_nodes,
         rows_out,
         cols_out,
         wts_out if has_w else None,
         widths,
+        _flat=(rows_t, cols_t, wts_t),
     )

@@ -16,27 +16,33 @@ import torch
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ops
 
-__all__ = ["LIBRARY", "HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["LIBRARY", "HEAD_DIMS", "bind_launcher", "flash_attention_cuda", "kernel_info"]
 
 LIBRARY = "flash_attention"
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_ERRORS = "-1: refused arguments, -2: the driver refused a tensor map of q, k or v"
+
+
+def bind_launcher(lib: ctypes.CDLL):
+    """The library's `flash_attention_launch` with its argument types set."""
+    fn = lib.flash_attention_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv Hq Hkv dh
+        *([ctypes.c_longlong] * 9),  # (b, s, h) strides of q, k, v
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal q_offset scale dtype
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launcher():
     global _FN
     if _FN is None:
-        fn = load_library(LIBRARY).flash_attention_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv Hq Hkv dh
-            *([ctypes.c_longlong] * 9),  # (b, s, h) strides of q, k, v
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal q_offset scale dtype
-            ctypes.c_void_p,  # stream
-        ]
-        fn.restype = ctypes.c_int
-        _FN = fn
+        _FN = bind_launcher(load_library(LIBRARY))
     return _FN
 
 
@@ -93,6 +99,24 @@ def flash_attention_cuda(
         with torch.cuda.device(q.device):
             err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention: launch failed with CUDA error {err} (-1: refused arguments)")
+        raise RuntimeError(f"flash_attention: launch failed with CUDA error {err} ({_ERRORS})")
     ops.flash_attention.launches += 1
     return out
+
+
+def kernel_info(dh: int, consumer_groups: int) -> dict:
+    """Resources of the bf16 kernel at head dim `dh` with 1 or 2 consumer
+    warpgroups (64- or 128-row q tiles), from `cudaFuncGetAttributes`:
+    registers a thread at launch (the consumers raise theirs with
+    `setmaxnreg`), spilled bytes a thread, dynamic shared memory and threads a
+    block.  Builds the library if it is not built yet."""
+    fn = load_library(LIBRARY).flash_attention_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, *([ctypes.POINTER(ctypes.c_int)] * 4)]
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = fn(dh, consumer_groups, *[ctypes.byref(v) for v in out])
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kernel_info({dh}, {consumer_groups}) failed with {err}")
+    regs, local, smem, threads = (v.value for v in out)
+    return {"registers_at_launch": regs, "local_bytes": local, "dynamic_smem_bytes": smem,
+            "threads": threads}

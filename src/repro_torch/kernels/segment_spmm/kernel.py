@@ -1,10 +1,11 @@
-"""Build, argument checks and launch of the CUDA kernel `csrc/ell_spmm.cu`.
+"""Build, argument checks and launch of the CUDA kernels of `csrc/ell_spmm.cu`.
 
 Importing this module builds nothing and needs no CUDA: `nvcc` runs at the
-first launch (see `repro_torch.kernels.build`).  `ell_spmm_cuda` takes CUDA
-tensors only and raises on anything the kernel does not take; the choice
-between kernel and plain version is made in `ops.py`.  Each launch adds one to
-`ops.ell_spmm.launches`, here and nowhere else.
+first launch (see `repro_torch.kernels.build`).  `ell_spmm_cuda` (one bucket)
+and `segment_spmm_cuda` (the whole reduce in one launch) take CUDA tensors
+only and raise on anything the kernels do not take; the choice between kernel
+and plain version is made in `ops.py`.  Each launch adds one to
+`ops.ell_spmm.launches` or `ops.segment_spmm.launches`, here and nowhere else.
 """
 from __future__ import annotations
 
@@ -12,14 +13,16 @@ import ctypes
 
 import torch
 
+from repro_torch.graph.structs import EllBlocks
 from repro_torch.kernels.build import build_library, load_library
 from repro_torch.kernels.segment_spmm import ops
 
-__all__ = ["LIBRARY", "build", "ell_spmm_cuda"]
+__all__ = ["LIBRARY", "build", "ell_spmm_cuda", "segment_spmm_cuda"]
 
 LIBRARY = "ell_spmm"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_FUSED = None
 
 
 def build():
@@ -39,6 +42,28 @@ def _launcher():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _fused_launcher():
+    global _FUSED
+    if _FUSED is None:
+        fn = load_library(LIBRARY).segment_spmm_launch
+        fn.argtypes = [
+            *([ctypes.c_void_p] * 7),  # x cols wts rows items zero_rows out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,  # n d n_items n_zero
+            ctypes.c_int, ctypes.c_void_p,  # dtype code, stream
+        ]
+        fn.restype = ctypes.c_int
+        _FUSED = fn
+    return _FUSED
+
+
+def _on_device(fn, device: torch.device, args: tuple) -> int:
+    """Call a launcher on the stream of the device that holds the tensors."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype, ndim: int):
@@ -79,12 +104,43 @@ def ell_spmm_cuda(
         x.data_ptr(), cols.data_ptr(), wts.data_ptr() if wts is not None else None,
         out.data_ptr(), n, d, r, w, _DTYPE_CODE[x.dtype],
     )
-    if x.device.index == torch.cuda.current_device():
-        err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
-    else:  # the launch goes to the device that holds the tensors
-        with torch.cuda.device(x.device):
-            err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
+    err = _on_device(_launcher(), x.device, args)
     if err != 0:
         raise RuntimeError(f"ell_spmm: launch failed with CUDA error {err} (-1: refused arguments)")
     ops.ell_spmm.launches += 1
+    return out
+
+
+def segment_spmm_cuda(x: torch.Tensor, ell: EllBlocks) -> torch.Tensor:
+    """x (N, D) f32|bf16, N = ell.num_nodes → (N, D) in x's type: every bucket
+    of `ell` in one launch on the current stream, each row stored to its
+    vertex, vertices in no bucket 0.  No synchronisation; the output is the
+    only allocation."""
+    if not x.is_cuda:
+        raise ValueError("segment_spmm_cuda takes CUDA tensors; the plain version is ref.segment_spmm_ref")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"segment_spmm: x must be float32 or bfloat16, got {x.dtype}")
+    _check("x", x, x.device, x.dtype, 2)
+    n, d = x.shape
+    if n != ell.num_nodes:
+        raise ValueError(f"segment_spmm: x has {n} rows, the graph {ell.num_nodes} vertices")
+    if n == 0 or d == 0:
+        raise ValueError(f"segment_spmm: empty x {tuple(x.shape)}")
+    work = ell.work()
+    _check("cols", work.cols, x.device, torch.int32, 1)
+    _check("rows", work.rows, x.device, torch.int32, 1)
+    _check("items", work.items, x.device, torch.int64, 2)
+    _check("zero_rows", work.zero_rows, x.device, torch.int32, 1)
+    if work.weights is not None:
+        _check("weights", work.weights, x.device, torch.float32, 1)
+    out = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    args = (
+        x.data_ptr(), work.cols.data_ptr(), work.weights.data_ptr() if work.weights is not None else None,
+        work.rows.data_ptr(), work.items.data_ptr(), work.zero_rows.data_ptr(), out.data_ptr(),
+        n, d, work.items.shape[0], work.zero_rows.numel(), _DTYPE_CODE[x.dtype],
+    )
+    err = _on_device(_fused_launcher(), x.device, args)
+    if err != 0:
+        raise RuntimeError(f"segment_spmm: launch failed with CUDA error {err} (-1: refused arguments)")
+    ops.segment_spmm.launches += 1
     return out

@@ -1,20 +1,21 @@
-"""Dispatching wrapper: whole-graph SpMM through the degree-binned ELL path.
+"""Dispatching wrappers: one ELL bucket (`ell_spmm`) and the whole-graph
+SpMM through the degree-binned ELL layout (`segment_spmm`).
 
-`segment_spmm(x, ell)` runs every ELL bucket through `ell_spmm` and stores the
-bucket outputs back in vertex order — the result equals `coo_spmm_ref` over
-the original edge list.
+`segment_spmm(x, ell)` computes every bucket and stores each row in vertex
+order — the result equals `coo_spmm_ref` over the original edge list.  On the
+card that is one launch of the fused kernel over `ell.work()`.
 
 Dispatch rule: a CUDA tensor goes to the CUDA kernel, or raises; a CPU tensor
 goes to the plain version.  Nothing here catches a failure and falls back.
-`ell_spmm.launches` counts kernel launches (a plain integer); `kernel.py` adds
-one where it launches.
+`ell_spmm.launches` and `segment_spmm.launches` count kernel launches (plain
+integers); `kernel.py` adds one where it launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.graph.structs import EllBlocks
-from repro_torch.kernels.segment_spmm.ref import ell_spmm_ref
+from repro_torch.kernels.segment_spmm.ref import ell_spmm_ref, segment_spmm_ref
 
 __all__ = ["segment_spmm", "ell_spmm"]
 
@@ -55,15 +56,27 @@ def segment_spmm(x: torch.Tensor, ell: EllBlocks, *, impl: str = "auto") -> torc
     """x (N, D) → (N, D): out[v] = Σ_{(u→v)∈E} w·x[u] using the reversed-graph
     ELL (bucket rows are destination vertices, cols their in-neighbours).
 
-    Every real vertex sits in exactly one bucket, so the scatter-back is an
-    indexed store (no accumulation); padded rows go to the sentinel row N."""
-    n, d = x.shape
-    out = torch.zeros((n + 1, d), dtype=x.dtype, device=x.device)  # +1 sentinel row
-    for b in range(ell.num_buckets):
-        cols = ell.cols[b]
-        if cols.shape[0] == 0:
-            continue
-        wts = ell.weights[b] if ell.weights is not None else None
-        part = ell_spmm(x, cols, wts, impl=impl)
-        out[ell.scatter_rows(b)] = part  # padded rows → sentinel
-    return out[:n]
+    Every vertex with in-degree > 0 is a row of exactly one bucket, so each
+    output row has one writer and no accumulation; a vertex with in-degree 0
+    is in no bucket and its row is exactly 0.  `impl="auto"`: the fused kernel
+    for a CUDA `x`, `ref` for a CPU `x`.  The kernel has no backward: on its
+    route, `x` or the weights requiring grad (with grad on) raises."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; options: {'|'.join(IMPLS)}")
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "ref"
+    if impl == "ref":
+        return segment_spmm_ref(x, ell)
+    if torch.is_grad_enabled() and (
+        x.requires_grad or (ell.weights is not None and any(w.requires_grad for w in ell.weights))
+    ):
+        raise NotImplementedError(
+            "segment_spmm: the CUDA kernel has no backward, and an input requires grad; "
+            "use impl='ref' to differentiate (the kernel's backward is ROADMAP.md Queue B 4)"
+        )
+    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
+
+    return segment_spmm_cuda(x, ell)
+
+
+segment_spmm.launches = 0

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.graph.generators import rmat
-from repro_torch.graph.structs import build_ell
+from repro_torch.graph.structs import HostGraph, build_ell
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -91,6 +91,71 @@ def test_whole_graph_equals_coo_oracle(seed):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 
+def _hub_graph(weighted, seed=0):
+    """R-MAT on 3,000 vertices, vertex 7 the target of 1,500 more edges (an
+    ELL row of width 2,048: a hub), and 40 vertices with no edge at all."""
+    g = rmat(3000, 30_000, seed=seed, weighted=weighted)
+    rng = np.random.default_rng(seed)
+    extra = rng.choice(3000, 1500, replace=False)
+    src = np.concatenate([g.src, extra]).astype(g.src.dtype)
+    dst = np.concatenate([g.dst, np.full(1500, 7)]).astype(g.dst.dtype)
+    w = None if g.weight is None else np.concatenate([g.weight, rng.random(1500).astype(np.float32)])
+    return HostGraph(3040, src, dst, w)
+
+
+def _per_bucket(x, ell):
+    """The reduce one bucket a launch, scattered back through a sentinel row."""
+    n = x.shape[0]
+    out = torch.zeros((n + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    for b in range(ell.num_buckets):
+        if ell.cols[b].shape[0]:
+            wts = ell.weights[b] if ell.weights is not None else None
+            out[ell.rows[b].long().clamp(max=n)] = ell_spmm(x, ell.cols[b], wts)
+    return out[:n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 16, 64])
+def test_fused_reduce_equals_the_per_bucket_route(d, dtype, weighted):
+    _need_card()
+    g = _hub_graph(weighted)
+    ell = build_ell(g.reversed())
+    assert max(ell.widths) >= 1024 and ell.work().zero_rows.numel() >= 40
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((g.num_nodes, d)).astype(np.float32)).cuda()
+    x = x.to(dtype)
+    before = segment_spmm.launches
+    got = segment_spmm(x, ell)
+    assert segment_spmm.launches == before + 1  # one launch a reduce
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, _per_bucket(x, ell))  # same lanes, same order: the same bits
+    assert torch.equal(got, segment_spmm(x, ell))
+    isolated = torch.from_numpy(np.setdiff1d(np.arange(g.num_nodes), g.dst)).cuda()
+    assert bool((got[isolated] == 0).all())
+    want = coo_spmm_ref(x, torch.from_numpy(g.src).cuda(), torch.from_numpy(g.dst).cuda(),
+                        None if g.weight is None else torch.from_numpy(g.weight).cuda(), g.num_nodes)
+    torch.testing.assert_close(got.float(), want.float(), **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_fused_reduce_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    g = _hub_graph(True)
+    ell = build_ell(g.reversed())
+    x = torch.ones((g.num_nodes, 4), device="cuda")
+    before = segment_spmm.launches
+    with pytest.raises(ValueError):
+        segment_spmm(x[:-1], ell)  # not the graph's vertex count
+    with pytest.raises(TypeError):
+        segment_spmm(x.double(), ell)
+    with pytest.raises(ValueError):
+        segment_spmm(x.t().contiguous().t(), ell)  # not contiguous
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        segment_spmm(x.requires_grad_(), ell)
+    assert segment_spmm.launches == before
+
+
 # ------------------------------------------------------------ flash attention
 
 ATTN_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32), (2, 96, 160, 4, 4, 64),
@@ -121,15 +186,42 @@ def test_flash_attention_matches_plain_version(b, sq, skv, hq, hkv, dh, causal, 
 
 
 @pytest.mark.gpu
-def test_flash_attention_reads_strided_views():
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_attention_reads_strided_views(dh):
     """q/k/v as views into one packed (B, S, Hq + 2·Hkv, dh) projection."""
     _need_card()
     rng = np.random.default_rng(1)
-    qkv = torch.from_numpy(rng.standard_normal((2, 130, 12, 64)).astype(np.float32)).cuda().bfloat16()
+    qkv = torch.from_numpy(rng.standard_normal((2, 130, 12, dh)).astype(np.float32)).cuda().bfloat16()
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got = flash_attention(q, k, v, causal=True)
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,q_offset", [(1, 200, 328, 8, 2, 128), (2, 1000, 1100, 16, 4, 100)])
+def test_flash_attention_ragged_lengths_and_offset(b, sq, skv, hq, hkv, q_offset, dh):
+    """Sq and Skv not multiples of a tile, kv rows past the causal edge; the
+    second case launches 128-row q tiles (two consumer warpgroups)."""
+    _need_card()
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, dh, torch.bfloat16, seed=2)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, q_offset=q_offset))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [512, 2048, 3072])
+def test_flash_attention_at_the_serve_path_shapes(s):
+    """llama3.2-3b prefill: q (1, S, 24, 128), k/v (1, S, 8, 128) bf16, causal."""
+    _need_card()
+    q, k, v = _attn_inputs(1, s, s, 24, 8, 128, torch.bfloat16, seed=3)
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))  # two runs, the same bits
 
 
 @pytest.mark.gpu

@@ -18,9 +18,9 @@ from repro.kernels.segment_spmm.kernel import ell_spmm_pallas
 from repro.kernels.segment_spmm.ref import coo_spmm_ref as jax_coo_spmm_ref
 from repro.kernels.segment_spmm.ref import ell_spmm_ref as jax_ell_spmm_ref
 from repro_torch.graph.generators import rmat
-from repro_torch.graph.structs import build_ell
+from repro_torch.graph.structs import ELL_HUB_WIDTH, ELL_ITEM_SLOTS, HostGraph, build_ell
 from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
-from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref
+from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref, segment_spmm_ref
 
 TOL = dict(rtol=2e-3, atol=2e-5)  # fp32 accumulation in another order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # bf16 products/rounding differ between frameworks
@@ -155,3 +155,75 @@ def test_empty_bucket_returns_empty():
     x = torch.zeros((10, 4))
     out = ell_spmm(x, torch.zeros((0, 8), dtype=torch.int32), None)
     assert out.shape == (0, 4)
+
+
+def _graph(seed, weighted):
+    """`test_whole_graph_equals_coo_oracles`'s R-MAT graph, weighted or not,
+    with 20 more vertices that have no edge at all."""
+    g = rmat(150, 900, seed=seed, weighted=weighted)
+    return HostGraph(170, g.src, g.dst, g.weight)
+
+
+@pytest.mark.parametrize("d", [1, 16])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_work_table_covers_every_real_row_once(seed, weighted, d):
+    g = _graph(seed, weighted)
+    ell = build_ell(g.reversed(), device="cpu")
+    work = ell.work()
+    items = work.items.numpy()
+    assert items.dtype == np.int64 and items.shape[1] == 4
+    assert list(items[:, 2]) == sorted(items[:, 2], reverse=True)  # hubs (widest rows) first
+    # the flat buffers are the buckets, and the buckets are views into them
+    assert torch.equal(work.cols, torch.cat([c.reshape(-1) for c in ell.cols]))
+    assert torch.equal(work.rows, torch.cat(ell.rows))
+    if weighted:
+        assert torch.equal(work.weights, torch.cat([w.reshape(-1) for w in ell.weights]))
+        assert all(w.untyped_storage().data_ptr() == work.weights.untyped_storage().data_ptr() for w in ell.weights)
+    else:
+        assert work.weights is None and ell.weights is None
+    assert all(c.untyped_storage().data_ptr() == work.cols.untyped_storage().data_ptr() for c in ell.cols)
+    seen = np.zeros(work.rows.numel(), dtype=np.int64)
+    row0 = np.cumsum([0] + [int(r.numel()) for r in ell.rows])
+    slot0 = np.cumsum([0] + [int(c.numel()) for c in ell.cols])
+    for first, count, width, slot in items:
+        b = ell.widths.index(int(width))
+        assert row0[b] <= first and first + count <= row0[b + 1]  # an item stays inside its bucket
+        assert slot == slot0[b] + (first - row0[b]) * width
+        assert count == 1 if width >= ELL_HUB_WIDTH else count <= max(1, ELL_ITEM_SLOTS // width)
+        seen[first : first + count] += 1
+    assert np.all(seen == 1)  # every row of every bucket, padded ones included, exactly once
+    rows = work.rows.numpy()
+    real = rows[rows < g.num_nodes]
+    indeg = np.bincount(g.dst, minlength=g.num_nodes)
+    assert np.array_equal(np.sort(real), np.nonzero(indeg > 0)[0])  # each such vertex in one real row
+    assert np.array_equal(np.sort(work.zero_rows.numpy()), np.nonzero(indeg == 0)[0])
+    assert (indeg == 0).sum() >= 20
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flat_layout_reader_equals_jax_coo_oracle(seed, weighted):
+    g = _graph(seed, weighted)
+    ell = build_ell(g.reversed(), device="cpu")
+    x = np.random.default_rng(seed).standard_normal((g.num_nodes, 16)).astype(np.float32)
+    got = segment_spmm_ref(torch.from_numpy(x), ell).numpy()
+    jw = None if g.weight is None else jnp.asarray(g.weight)
+    jwant = np.asarray(jax_coo_spmm_ref(jnp.asarray(x), jnp.asarray(g.src), jnp.asarray(g.dst), jw, g.num_nodes))
+    np.testing.assert_allclose(got, jwant, **TOL)
+    np.testing.assert_array_equal(got, segment_spmm(torch.from_numpy(x), ell, impl="ref").numpy())
+    isolated = np.nonzero(np.bincount(g.dst, minlength=g.num_nodes) == 0)[0]
+    assert isolated.size >= 20 and np.all(got[isolated] == 0.0)
+
+
+def test_fused_route_refuses_cpu_tensors_without_fallback():
+    g = _graph(0, True)
+    ell = build_ell(g.reversed(), device="cpu")
+    x = torch.ones((g.num_nodes, 4))
+    before = segment_spmm.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        segment_spmm(x, ell, impl="cuda")
+    with pytest.raises(ValueError):
+        segment_spmm(x, ell, impl="buckets")
+    assert segment_spmm.launches == before
+    assert torch.equal(segment_spmm(x, ell), segment_spmm_ref(x, ell))  # auto on the CPU: the plain reader
