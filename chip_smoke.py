@@ -11,8 +11,14 @@ and read just after:
   simulator) on the Table-2 workload `amazon` at its published size (304,000
   nodes, 4,300,000 edges), on the `paper` grid's 12 configurations for it
   (bfs/sssp/pagerank × mesh2d/fbutterfly × proposed vs randomized baseline, 16
-  engines); its kernel is `segment_spmm` (every ELL bucket of a PageRank
-  reduce in one launch, `csrc/ell_spmm.cu`);
+  engines); then on the same graph the windowed NoC replay (the
+  `backpressure` grid's 6 configurations, pagerank × mesh2d/torus2d/torus3d ×
+  proposed vs baseline, both routing arms, open loop and credit at depths
+  0.5-8 and inf, the flight recorder attached) and the journaled resilience
+  runner (the `faults` grid: mesh2d/torus2d × 5 fault rates, 10 units, then
+  resumed from its journal); its kernel is `segment_spmm` (every ELL bucket
+  of a PageRank reduce in one launch, `csrc/ell_spmm.cu`), launched by the
+  traces of all three runs;
 * LM serving: `repro_torch.launch.serve.build_engine` on llama3.2-3b at its
   published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
@@ -40,6 +46,15 @@ Phases, one JSON line each:
              bound and `torch.sparse.mm` (call and CUDA-graph replay)
   engine     `run_traced` for the three algorithms against host references
   sweep      `run_sweep` with the torch backend against the numpy backend
+  contention `run_sweep` with the contention pass and the flight recorder:
+             the torch steppers' timelines against numpy's (open arm bit for
+             bit, credit arm within 1e-9 of the peak, credit@inf bit-equal to
+             open), recording on against off, proposed beating baseline on
+             the mesh; launches, device time a window and busy share of a
+             replay (`torch.profiler`), the two arms' wall times
+  faults     `run_resilience` with the torch arm: every unit completes, parity
+             within 1e-6 (0 at rate 0), a resumed run served from the journal
+             and byte-identical
   attention  `flash_attention` against its plain version (test shapes, f32
              and bf16, and the serve path's shapes; two runs bit-equal), its
              time and TFLOP/s at every path shape beside the operation bound
@@ -115,6 +130,10 @@ BAG_MULTI_HOT, BAG_MULTI_BATCH = 8, 8_192
 BAG_SOURCE = "src/repro_torch/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag/kernel.py:51"
 SECTOR_BYTES = 32  # the unit in which device memory serves a gathered row
+
+# windowed NoC replay: the credit arm's torch stepper against numpy's, relative
+# to each timeline's peak (its contractions sum in another order; ~1e-15 seen)
+NOC_CREDIT_RTOL = 1e-9
 
 # recsys: dcn-v2 at its published configuration
 RECSYS_ARCH = "dcn-v2"
@@ -514,6 +533,278 @@ def phase_sweep(device: torch.device, grid, graph, smi: str | None) -> tuple[dic
         "segment_spmm_launches": launches, "card": smi,
     }
     say("sweep", **out)
+    return out, launches
+
+
+# --------------------------------------------------------------------------- windowed NoC replay
+
+
+def device_profile(fn) -> dict:
+    """Kernel launches, memory copies and device time of one call, read from
+    `torch.profiler`: `device_busy_ms` is the union of the device's intervals,
+    `kernel_ms` the sum of the kernels' durations, `profiled_wall_ms` the host
+    clock around that same call (profiler overhead included) and
+    `busy_share` their ratio; `result` is what `fn` returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"kernel_launches": len(kernels), "copies": len(dev) - len(kernels),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "device_busy_ms": busy / 1e3, "profiled_wall_ms": wall,
+            "busy_share": busy / 1e3 / wall, "result": result}
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of one call that ends in a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _without_clock(d: dict) -> dict:
+    """A `SweepResult.to_dict()` without what the wall clock and the cache's
+    hit/miss counts set: what recording must leave unchanged."""
+    out = {k: v for k, v in d.items() if k not in ("timings", "memory", "cache_stats")}
+    for rows in ("records", "comparisons"):
+        out[rows] = [{k: v for k, v in r.items() if k != "elapsed_us"} for r in d[rows]]
+    out["placement_stats"] = {k: v for k, v in d["placement_stats"].items() if not k.endswith("_s")}
+    if d["contention"] is not None:
+        out["contention"] = {k: v for k, v in d["contention"].items() if k != "timings"}
+    return out
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest |got − want| relative to the timeline's peak (a backlog that
+    drains to ~0 keeps a residue of the order of its peak's last bit)."""
+    return float(np.max(np.abs(got - want), initial=0.0) / max(1.0, float(np.max(np.abs(want), initial=0.0))))
+
+
+def phase_contention(device: torch.device, grid, graph, smi: str | None) -> tuple[dict, int]:
+    import tempfile
+
+    from repro_torch.experiments.cache import SweepCache
+    from repro_torch.experiments.sweep import run_sweep
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
+    from repro_torch.nocsim import NocSimParams, build_credit_program, contended_batch, run_credit
+    from repro_torch.nocsim.batch import (PARITY_RTOL, contention_sweep_payload, open_step, run_windows,
+                                          stacked_open_program)
+    from repro_torch.nocsim.model import build_schedule
+    from repro_torch.nocsim.routes import ROUTING_POLICIES
+    from repro_torch.obs import FlightRecorder
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = SweepCache(tmp, device=device)
+        rec = FlightRecorder()
+        segment_spmm.launches = ell_spmm.launches = 0  # the path's own count starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_sweep(grid, backend="torch", device=device, measure_serial=False, cache=cache,
+                        graphs={"amazon": graph}, recorder=rec, keep_artifacts=True)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = segment_spmm.launches
+        check(launches > 0, "the contention sweep launched segment_spmm no time")
+        check(ell_spmm.launches == 0, "the contention sweep launched the one-bucket kernel")
+        # the same sweep with the recorder off (traces and traffic from the cache)
+        off = run_sweep(grid, backend="torch", device=device, measure_serial=False, cache=cache,
+                        graphs={"amazon": graph})
+    check(_without_clock(res.to_dict()) == _without_clock(off.to_dict()),
+          "the sweep's payload differs with the recorder on")
+    cont = res.contention
+    configs = grid.expand()
+    n_arms = len(ROUTING_POLICIES) * (1 + len(grid.buffer_depths))
+    check(len(cont["records"]) == len(configs) * n_arms, "a contention record for every config and arm")
+    for r in cont["records"]:
+        check(all(v is None or np.isfinite(v) for v in r.values() if isinstance(v, float)),
+              f"non-finite contention record {r['key']} {r['routing']} {r['flow_control']}")
+    check(cont["backends"] == ["numpy", "torch"], "both arms ran")
+    check(cont["backend_parity_max_rel"] <= NOC_CREDIT_RTOL, f"numpy↔torch parity {cont['backend_parity_max_rel']}")
+    check(cont["credit_inf_numpy_max_abs"] == 0.0, "numpy credit@inf differs from the open arm")
+    check(cont["credit_inf_torch_max_rel"] == 0.0, "torch credit@inf differs from the open arm")
+
+    # proposed vs baseline, contended T_network, on the mesh: every routing arm, open loop
+    def t_net(routing, flow_control, depth, scheme):
+        (r,) = [r for r in cont["records"] if r["topology"] == "mesh2d" and r["routing"] == routing
+                and r["flow_control"] == flow_control and r["buffer_depth"] == depth
+                and (r["partitioner"], r["placement"]) == scheme]
+        return r["t_network_contended_s"]
+
+    (prop, base) = grid.schemes()
+    wins = {f"{routing}/{fc}" + ("" if d is None else f"@{d:g}"):
+            t_net(routing, fc, d, base) / t_net(routing, fc, d, prop)
+            for routing in ROUTING_POLICIES
+            for fc, d in [("open", None)] + [("credit", d) for d in grid.buffer_depths]}
+    check(all(wins[f"{routing}/open"] > 1.0 for routing in ROUTING_POLICIES),
+          f"the proposed scheme does not beat the baseline on the mesh: {wins}")
+
+    # the steppers state by state, on the sweep's own traffic and placements
+    art = res.artifacts
+    w = NocSimParams().windows
+    worst_credit, open_equal, inf_equal, chunks_equal = 0.0, True, True, True
+    replay = {}
+    for routing in ROUTING_POLICIES:
+        params = NocSimParams(routing=routing)
+        scheds = [build_schedule(t, p, noc_params=params) for t, p in zip(art["traffics"], art["placements"])]
+        inj = stacked_open_program(scheds, w)
+        (s_np, b_np), _ = run_windows(open_step("numpy"), (inj,), None)
+        (s_t, b_t), _ = run_windows(open_step("torch"), (torch.from_numpy(inj).to(device),), None)
+        s_t, b_t = s_t.cpu().numpy(), b_t.cpu().numpy()
+        open_equal &= bool(np.array_equal(s_t, s_np) and np.array_equal(b_t, b_np))
+        for chunk in (1, w - 1, w):  # the carry stays on the card between chunks
+            (s_c, b_c), _ = run_windows(open_step("torch"), (torch.from_numpy(inj).to(device),), None,
+                                        window_chunk=chunk)
+            chunks_equal &= bool(np.array_equal(s_c.cpu().numpy(), s_t) and np.array_equal(b_c.cpu().numpy(), b_t))
+        for depth in tuple(grid.buffer_depths) + (float("inf"),):
+            prog = build_credit_program(scheds, NocSimParams(routing=routing, flow_control="credit",
+                                                             buffer_depth=depth))
+            tl_t, carry_t = run_credit(prog, backend="torch", device=device)
+            if depth == float("inf"):
+                inf_equal &= bool(np.array_equal(tl_t.serviced, s_t) and np.array_equal(tl_t.eff_backlog, b_t))
+                continue
+            tl_np, carry_np = run_credit(prog, backend="numpy")
+            if depth == 1.0:
+                for chunk in (1, w - 1, w):
+                    tl_c, _ = run_credit(prog, backend="torch", device=device, window_chunk=chunk)
+                    chunks_equal &= all(np.array_equal(getattr(tl_c, f), getattr(tl_t, f)) for f in
+                                        ("serviced", "eff_backlog", "buf", "src", "admitted", "arrivals"))
+            for f in ("serviced", "eff_backlog", "buf", "src", "admitted", "arrivals"):
+                worst_credit = max(worst_credit, _rel(getattr(tl_t, f), getattr(tl_np, f)))
+            worst_credit = max(worst_credit, *(_rel(a, b) for a, b in zip(carry_t, carry_np)))
+        if routing == "dor":
+            replay["configs"], replay["links"] = inj.shape[1], inj.shape[2]
+            replay["flows"] = prog.offered.shape[2]
+            replay["pairs"] = int(prog.pair_c.size)
+            replay["incidence_mb"] = prog.inc.nbytes / 1e6
+            cred = NocSimParams(flow_control="credit", buffer_depth=1.0)
+            for arm, p in (("open", params), ("credit_d1", cred)):
+                call = lambda p=p: contended_batch(art["traffics"], art["placements"], noc_params=p,  # noqa: E731
+                                                   backend="torch", schedules=scheds, device=device)
+                call()  # warm
+                prof = device_profile(call)
+                del prof["result"]
+                ms = wall_ms(call)
+                replay[arm] = {**prof, "wall_ms": ms, "numpy_wall_ms": wall_ms(
+                    lambda p=p: contended_batch(art["traffics"], art["placements"], noc_params=p,
+                                                backend="numpy", schedules=scheds), reps=1),
+                    "launches_per_window": prof["kernel_launches"] / w,
+                    "device_ms_per_window": prof["kernel_ms"] / w}
+    check(open_equal, "open arm: torch timelines differ from numpy's")
+    check(inf_equal, "torch credit@inf differs from the torch open arm")
+    check(chunks_equal, "torch arm: window chunks 1, W-1, W differ from the unchunked replay")
+    check(worst_credit <= NOC_CREDIT_RTOL, f"credit arm: torch vs numpy {worst_credit} (relative to the peak)")
+
+    # the device over the whole pass: the payload again under the profiler,
+    # every share taken against that same call's own clocks
+    pass_prof = device_profile(lambda: contention_sweep_payload(
+        configs, art["traffics"], art["placements"], num_iterations=art["num_iterations"],
+        buffer_depths=grid.buffer_depths, device=device))
+    prof_torch_s = sum(v for k, v in pass_prof.pop("result")["timings"].items() if k.endswith("_torch_s"))
+    t = cont["timings"]
+    numpy_s = sum(v for k, v in t.items() if k.endswith("_numpy_s"))
+    torch_s = sum(v for k, v in t.items() if k.endswith("_torch_s"))
+    out = {
+        "configs": len(configs), "scale": grid.scale, "routing_arms": list(ROUTING_POLICIES),
+        "buffer_depths": list(grid.buffer_depths), "records": len(cont["records"]), "cuts": [],
+        "open_torch_equals_numpy_bitwise": open_equal, "credit_max_rel_vs_numpy": worst_credit,
+        "credit_tolerance": NOC_CREDIT_RTOL, "credit_inf_equals_open_torch_bitwise": inf_equal,
+        "torch_chunks_1_Wm1_W_bitwise": chunks_equal,
+        "payload_parity_max_rel": cont["backend_parity_max_rel"], "parity_rtol": PARITY_RTOL,
+        "credit_inf_numpy_max_abs": cont["credit_inf_numpy_max_abs"],
+        "credit_inf_torch_max_rel": cont["credit_inf_torch_max_rel"],
+        "recorder_on_equals_off": True, "mesh_win_baseline_over_proposed": wins,
+        "numpy_arm_s": numpy_s, "torch_arm_s": torch_s, "arm_timings_s": t,
+        "contention_s": res.timings["contention_s"], "sweep_s": sweep_s, "sweep_timings_s": res.timings,
+        "replay": replay,
+        "pass_profile": {**pass_prof, "torch_arm_s": prof_torch_s,
+                         "busy_share_of_torch_arm": pass_prof["device_busy_ms"] / 1e3 / prof_torch_s},
+        "recorder": rec.summary(), "segment_spmm_launches": launches, "card": smi,
+        "timing": "numpy_arm_s / torch_arm_s: the sums of contention_sweep_payload's per-arm host-clock "
+                  "timings (14 replays each); replay.*: one contended_batch of the 6 configs on prebuilt "
+                  "schedules, torch.profiler for launches and device time, busy_share = device_busy_ms / "
+                  "profiled_wall_ms of that same profiled call; wall_ms: the host clock around an "
+                  "unprofiled synchronised call (median of 3); pass_profile: the whole payload again under "
+                  "torch.profiler, busy_share over that call's own host clock and busy_share_of_torch_arm "
+                  "over the torch arm's time inside that same call",
+    }
+    say("contention", **out)
+    return out, launches
+
+
+def phase_faults(device: torch.device, grid, graph, smi: str | None) -> tuple[dict, int]:
+    import os
+    import tempfile
+
+    from repro_torch.experiments.cache import SweepCache
+    from repro_torch.experiments.journal import SweepJournal
+    from repro_torch.experiments.resilience import run_resilience, unit_ids
+    from repro_torch.faults.degraded import PARITY_RTOL
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = SweepCache(os.path.join(tmp, "cache"), device=device)
+        path = os.path.join(tmp, "faults.json")
+        segment_spmm.launches = ell_spmm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_resilience(grid, cache=cache, backend="torch", device=device, graphs={"amazon": graph},
+                             journal=SweepJournal(path, grid.name, resume=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = segment_spmm.launches
+        check(launches > 0, "the faults runner launched segment_spmm no time")
+        check(ell_spmm.launches == 0, "the faults runner launched the one-bucket kernel")
+        t0 = time.perf_counter()
+        again = run_resilience(grid, cache=cache, backend="torch", device=device, graphs={"amazon": graph},
+                               journal=SweepJournal(path, grid.name, resume=True))
+        resume_s = time.perf_counter() - t0
+    uids = unit_ids(grid)
+    check(len(res.records) == len(uids) and res.quarantined == {},
+          f"{len(res.records)} of {len(uids)} units completed, quarantined: {sorted(res.quarantined)}")
+    check(res.backend == "numpy+torch", f"backend {res.backend}")
+    check(res.backend_parity_max_rel <= PARITY_RTOL, f"numpy↔torch parity {res.backend_parity_max_rel}")
+    for r in res.records:
+        for scheme in ("proposed", "baseline"):
+            check(all(np.isfinite(v) for v in r[scheme].values() if isinstance(v, float)),
+                  f"non-finite record {r['unit_id']}")
+        if r["fault_rate"] == 0.0:
+            check(r["backend_parity_rel"] == 0.0, f"open arm at rate 0 not bit-equal: {r['unit_id']}")
+    check(all(row["batch_parity"] for row in res.repair), "repair_batch differs from the serial repair")
+    check(json.dumps(again.to_dict(), sort_keys=True) == json.dumps(res.to_dict(), sort_keys=True),
+          "the resumed run's payload differs")
+    check(segment_spmm.launches == launches, "the resumed run traced again")
+    out = {
+        "units": len(res.records), "quarantined": len(res.quarantined), "scale": grid.scale,
+        "topologies": list(grid.topologies), "fault_rates": list(grid.fault_rates), "cuts": [],
+        "backend": res.backend, "parity_max_rel": res.backend_parity_max_rel, "parity_rtol": PARITY_RTOL,
+        "parity_rel_by_unit": {r["unit_id"]: r["backend_parity_rel"] for r in res.records},
+        "win_by_unit": {r["unit_id"]: r["win"] for r in res.records},
+        "dead_links_by_unit": {r["unit_id"]: r["num_dead_links"] for r in res.records},
+        "repair_rows": len(res.repair), "repair_batch_parity": True,
+        "resume_byte_identical": True, "resume_s": resume_s, "wall_s": wall,
+        "cache_stats": res.cache_stats, "segment_spmm_launches": launches, "card": smi,
+        "timing": "wall_s: host clock around run_resilience (every unit on the numpy reference and the "
+                  "torch arm, the repair ledger of the fault-free units, one trace); resume_s: the same call "
+                  "served from the journal",
+    }
+    say("faults", **out)
     return out, launches
 
 
@@ -1193,6 +1484,12 @@ def main() -> int:
     grid = dataclasses.replace(GRIDS["paper"], name="paper-amazon", workloads=("amazon",),
                                scale=scale, seed=args.seed)
     _, launches = phase_sweep(device, grid, graph, info["nvidia_smi"])
+    cgrid = dataclasses.replace(GRIDS["backpressure"], name="backpressure-amazon", workloads=("amazon",),
+                                scale=scale, seed=args.seed)
+    _, noc_launches = phase_contention(device, cgrid, graph, info["nvidia_smi"])
+    fgrid = dataclasses.replace(GRIDS["faults"], name="faults-amazon", workloads=("amazon",),
+                                scale=scale, seed=args.seed)
+    _, faults_launches = phase_faults(device, fgrid, graph, info["nvidia_smi"])
     del graph, small
     attn = phase_attention(device, timer)
     _, fa_launches = phase_serve(device, args.seed, info["nvidia_smi"])
@@ -1203,7 +1500,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [{
         "name": "ell_spmm", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": launches, "launches_contention": noc_launches, "launches_faults": faults_launches,
         "max_abs_err": max(kern["max_abs_err_f32"], kern["real_bucket_max_abs_err"]),
         "max_abs_err_bf16": kern["max_abs_err_bf16"],
         "ms": kern["kernel_ms"], "call_ms": kern["kernel_call_ms"], "plain_ms": kern["ref_ms"],

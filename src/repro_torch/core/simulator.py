@@ -141,8 +141,7 @@ def simulate(
     num_iterations only affects the latency term (one network window and one
     compute window per iteration) and static energy integration.
 
-    `contention` — a `NocSimParams` of the windowed NoC replay, which this
-    package does not hold yet (the argument raises `NotImplementedError`) — replaces the analytic
+    `contention` — a `repro_torch.nocsim.NocSimParams` — replaces the analytic
     network term with the windowed contention simulator's: T_network becomes
     max(t_sf, contended drain) + latency + mean queueing delay, recorded in
     `t_network_contended_s` (t_network_s keeps the analytic value so the two
@@ -178,10 +177,16 @@ def simulate(
     t_network = max(t_sf, t_serial) + t_latency
     t_network_contended = None
     if contention is not None:
-        raise NotImplementedError(
-            "contention= needs the windowed NoC replay (nocsim.model / nocsim.batch), "
-            "which a later slice of the port brings; use the analytic model here"
+        from repro_torch.nocsim import simulate_contended  # lazy: nocsim sits above core
+
+        noc = simulate_contended(
+            traffic,
+            placement,
+            noc_params=contention,
+            params=params,
+            num_iterations=num_iterations,
         )
+        t_network_contended = noc.t_network_contended_s
     exec_time = t_compute + (
         t_network if t_network_contended is None else t_network_contended
     )

@@ -115,8 +115,7 @@ PARITY_PAIRS = {
     "sparse_weighted_hops_batch": ("repro_torch.core.placement.sparse_weighted_hops", "bit"),
     "swap_delta_pairs_batch": ("repro_torch.core.placement.swap_delta_pairs", "bit"),
     "batch_descend": ("repro_torch.core.placement.two_opt_best_move", "bit"),
-    # serial counterpart lives in the fault-repair layer, which a later slice brings
-    "repair_batch": ("faults.repair.repair_descend", "bit"),
+    "repair_batch": ("repro_torch.faults.repair.repair_descend", "bit"),
 }
 
 # Methods the batched engine searches; everything else (random, columnar, the
@@ -740,7 +739,7 @@ def repair_batch(
     swap_block: int | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[list[np.ndarray], PlacementBatchStats]:
-    """Stacked counterpart of the fault-repair layer's serial `repair_descend`: C bounded
+    """Stacked counterpart of `repro_torch.faults.repair.repair_descend`: C bounded
     repair descents in one batched program, seeded from the evacuated
     layouts.  Unlike `batch_descend` the distance matrices come in explicitly
     (they are DEGRADED hop counts over the surviving fabric, not

@@ -92,8 +92,9 @@ class SweepResult:
     # Running process peak RSS (MiB) sampled after each pipeline stage
     # (peak_rss_mb): the §Scale memory column.
     memory: dict = dataclasses.field(default_factory=dict)
-    # contention-pass payload; always None until the windowed NoC replay is in
-    # this package.
+    # `--grid contention` payload (repro_torch.nocsim.contention_sweep_payload):
+    # per config × routing-arm contended records + backend parity; None for
+    # grids without the contention pass.
     contention: dict | None = None
     # obs metrics snapshot for THIS sweep (stage timings, cache events,
     # placement stats, saturation bounds).  Deliberately absent from
@@ -174,21 +175,19 @@ def run_sweep(
     `keep_artifacts` attaches the traffics, partitions, topologies and final
     placements to the result (`SweepResult.artifacts`).
 
-    Not in this package yet, each raising `NotImplementedError`: the windowed
-    contention pass (`grid.contention`), the flight recorder (`recorder=`)
-    and fault injection (`grid.fault_rates`) — all three ride on the windowed
-    NoC replay, which a later slice of the port brings.
+    `grid.contention` adds the windowed NoC replay (`nocsim`): every config ×
+    routing arm (and × buffer depth, with `grid.buffer_depths`) on the float64
+    numpy reference and on the torch stepper on `device`; the records are the
+    numpy arm's.  `grid.fault_rates` is not an axis of this runner (the
+    resilience runner, `experiments.resilience.run_resilience`, owns it) and
+    is ignored here, as in the reference package.
+
+    `recorder` (an `obs.FlightRecorder`) opts into the NoC flight-recorder
+    pass: every routable config replayed through the windowed simulator with
+    per-window link state captured — run strictly AFTER every payload field
+    (timings, memory, records) is finalized, so recording cannot perturb the
+    byte-compared artifact (tested contract).
     """
-    for what, asked in (
-        ("grid.contention=True (the windowed contention pass)", grid.contention),
-        ("recorder= (the NoC flight recorder)", recorder is not None),
-        ("grid.fault_rates (fault injection)", bool(grid.fault_rates)),
-    ):
-        if asked:
-            raise NotImplementedError(
-                f"{what} needs the windowed NoC replay (nocsim.batch / nocsim.credit / "
-                "faults), which a later slice of the port brings"
-            )
     t_start = obs.now_s()
     say = progress or (lambda _msg: None)
     dev = resolve_device(device)
@@ -376,10 +375,28 @@ def run_sweep(
             )
         )
 
-    # The windowed contention pass of the reference package comes with a later
-    # slice (refused at the top of this function); the payload keeps its keys.
+    # ---- windowed contention pass (repro_torch.nocsim, `--grid contention`) --
     contention = None
     t_contention = None
+    if grid.contention and configs:
+        from repro_torch.nocsim import contention_sweep_payload
+
+        with span("sweep.nocsim", cat="sweep", grid=grid.name) as sp:
+            contention = contention_sweep_payload(
+                configs,
+                traffics,
+                placements,
+                num_iterations=iters,
+                params=params,
+                buffer_depths=grid.buffer_depths,
+                device=dev,
+            )
+        t_contention = sp.duration_s
+        say(
+            f"[sweep:{grid.name}] contention: {len(contention['records'])} "
+            f"(config × arm) records, backends {contention['backends']}, "
+            f"numpy↔torch parity {contention['backend_parity_max_rel']:.2e}"
+        )
 
     memory["final_mb"] = peak_rss_mb()
     timings = {
@@ -404,6 +421,21 @@ def run_sweep(
         memory=memory,
         contention=contention,
     )
+    # ---- flight-recorder pass (opt-in; strictly after the payload) ---------
+    # Every byte-compared field (timings, memory, records) is already
+    # finalized above, so nothing the recorder replay allocates or times can
+    # leak into the artifact — the recording-on ≡ recording-off byte-identity
+    # contract rests on this ordering.
+    if recorder is not None and configs:
+        with span("sweep.nocsim_record", cat="sweep", grid=grid.name) as sp:
+            tracks = _record_noc_timelines(
+                recorder, configs, traffics, placements, topologies, iters, params
+            )
+            sp.annotate(configs_recorded=tracks)
+        say(
+            f"[sweep:{grid.name}] flight recorder: {tracks} routable config(s), "
+            f"{recorder.dropped_windows} window(s) dropped"
+        )
     if keep_artifacts:
         result.artifacts = {
             "traffics": traffics,
@@ -522,3 +554,35 @@ def figure_comparisons(records: list[SweepRecord]) -> list[dict]:
                 }
             )
     return out
+
+
+def _record_noc_timelines(
+    recorder, configs, traffics, placements, topologies, iters, params
+) -> int:
+    """Replay every routable config through the windowed numpy stepper with
+    the flight recorder tapped in, once per routing arm.  Topologies without
+    per-link routing (no `route_operators`) are skipped — the replay needs
+    exact routes.  Returns the number of configs recorded."""
+    from repro_torch.nocsim import NocSimParams
+    from repro_torch.nocsim.batch import DEFAULT_WINDOW_CHUNK, contended_batch
+    from repro_torch.nocsim.routes import ROUTING_POLICIES, route_operators
+
+    idx = [i for i, topo in enumerate(topologies) if route_operators(topo) is not None]
+    if not idx:
+        return 0
+    keys = [configs[i].key for i in idx]
+    sub_traffics = [traffics[i] for i in idx]
+    sub_placements = [placements[i] for i in idx]
+    sub_iters = np.asarray(iters)[idx]
+    for routing in ROUTING_POLICIES:
+        contended_batch(
+            sub_traffics,
+            sub_placements,
+            noc_params=NocSimParams(routing=routing, record_timeline=recorder),
+            params=params,
+            num_iterations=sub_iters,
+            backend="numpy",
+            config_keys=keys,
+            window_chunk=DEFAULT_WINDOW_CHUNK,
+        )
+    return len(idx)

@@ -1,13 +1,17 @@
-"""Observability layer: span tracing and the metrics registry.
+"""Observability layer: span tracing, metrics registry, NoC flight recorder.
 
-See `repro_torch.obs.trace` for the clock/determinism contract and
-`repro_torch.obs.metrics` for the comparable/non_comparable namespace split.
+See `repro_torch.obs.trace` for the clock/determinism contract,
+`repro_torch.obs.metrics` for the comparable/non_comparable namespace split,
+`repro_torch.obs.recorder` for the Perfetto counter-track capture of
+per-window NoC state, and `repro_torch.obs.validate` for the zero-dependency
+check of obs output files against the committed `schemas/`.
 """
 from __future__ import annotations
 
 import resource
 
 from . import metrics
+from .recorder import FlightRecorder
 from .trace import (
     Span,
     Tracer,
@@ -21,11 +25,14 @@ from .trace import (
     span,
     tracing_enabled,
 )
+from .validate import validate_file
 
 __all__ = [
     "Span",
     "Tracer",
     "metrics",
+    "FlightRecorder",
+    "validate_file",
     "span",
     "now_ns",
     "now_s",

@@ -131,13 +131,6 @@ def test_simulate_scalars_equal(graph, name, dims):
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
-def test_simulate_contention_waits_for_a_later_slice(graph):
-    p, t = _traffic(core, graph, parts=4)
-    pl = placement.random_placement(16, core.Mesh2D(4, 4), seed=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        core.simulate(t, pl, contention=object())
-
-
 def test_degree_and_replication_equal(graph):
     a, b = degree.skew_stats(degree.out_degrees(graph.src, graph.num_nodes)), jdegree.skew_stats(
         jdegree.out_degrees(graph.src, graph.num_nodes))

@@ -41,7 +41,10 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/configs/dcn_v2.py", "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/train/optim.py", "src/repro_torch/train/checkpoint.py",
                  "src/repro_torch/train/loop.py", "src/repro_torch/train/pytree.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py", "src/repro_torch/nocsim/model.py",
+                 "src/repro_torch/nocsim/batch.py", "src/repro_torch/nocsim/credit.py",
+                 "src/repro_torch/faults/degraded.py", "src/repro_torch/obs/recorder.py",
+                 "src/repro_torch/experiments/journal.py", "src/repro_torch/experiments/resilience.py"):
         assert must in names
     for cu in ("ell_spmm.cu", "flash_attention.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
@@ -120,12 +123,28 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch.train import train
     from repro_torch.models import recsys as rec
     from repro_torch.models import transformer as tfm
+    from repro_torch.core.placement import Placement
+    from repro_torch.core.traffic import TrafficMatrix
+    from repro_torch.experiments.grid import GRIDS
+    from repro_torch.experiments.resilience import run_resilience
+    from repro_torch.faults import FaultSet, degraded_batch
+    from repro_torch.nocsim import NocSimParams, build_credit_program, contended_batch, run_credit
+    from repro_torch.nocsim.batch import _open_step_torch, open_step
+    from repro_torch.nocsim.model import build_schedule, simulate_contended
     import numpy as np
 
     g = rmat(64, 256, seed=0)
     w = np.ones((4, 4))
     cfg = get_arch("llama3.2-3b").smoke_config()
     params = tfm.init_params(cfg, device="cpu")
+    tm = TrafficMatrix(num_parts=1, bytes_matrix=np.ones((4, 4)) - np.eye(4), phase_bytes={})
+    pl = Placement(Mesh2D(2, 2), np.arange(4), "test")
+    noc = NocSimParams(windows=4, buffer_depth=2.0)
+    prog = build_credit_program([build_schedule(tm, pl, noc_params=noc)], noc)
+    # the open stepper runs where its input tensors lie; "auto" picks the torch one
+    assert open_step() is open_step("auto") is open_step("torch") is _open_step_torch
+    with pytest.raises(ValueError, match="unknown backend"):
+        open_step("jax")
     calls = [
         lambda: run(g, alg.bfs_program()),
         lambda: run_traced(g, alg.bfs_program()),
@@ -139,6 +158,14 @@ def test_entry_points_default_to_the_card():
         lambda: rec.init_params(get_arch("dcn-v2").smoke_config()),
         lambda: train("dcn-v2", smoke=True, steps=1),
         lambda: to_device(next(iter(RecsysPipeline(2, 3, 10, 4)))),
+        lambda: contended_batch([tm], [pl], backend="torch"),
+        lambda: contended_batch([tm], [pl]),  # "auto" is the torch arm
+        lambda: degraded_batch([tm], [pl], [FaultSet()], backend="torch"),
+        lambda: run_credit(prog, backend="torch"),
+        lambda: run_credit(prog, backend="auto"),
+        lambda: simulate_contended(tm, pl, noc_params=noc, backend="torch"),
+        lambda: run_resilience(GRIDS["minifaults"]),
+        lambda: run_resilience(GRIDS["minifaults"], backend="numpy"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

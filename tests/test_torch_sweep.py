@@ -1,6 +1,6 @@
 """The slice as a whole: `repro_torch`'s `run_sweep` and `map_graph` on the CPU
-against `repro`'s numpy-backend sweep, record for record; the `interop`
-constructors; the parts that wait for a later slice refuse by name."""
+against `repro`'s numpy-backend sweep, record for record, the windowed
+contention pass (open and credit arms) included; the `interop` constructors."""
 import dataclasses
 
 import numpy as np
@@ -126,12 +126,44 @@ def test_pagerank_sweep_matches_with_either_reduce(tmp_path):
         _assert_records_match(port.records, ref.records)
 
 
-def test_later_slices_are_refused_by_name():
-    for grid in (GRIDS["contention"], dataclasses.replace(GRIDS["mini"], fault_rates=(0.0, 0.05))):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            run_sweep(grid, device="cpu")
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        run_sweep(GRIDS["mini"], device="cpu", recorder=object())
+@pytest.fixture(scope="module")
+def minicredit_pair():
+    port = run_sweep(GRIDS["minicredit"], backend="torch", device="cpu", measure_serial=False)
+    ref = jax_run_sweep(JAX_GRIDS["minicredit"], backend="numpy", measure_serial=False)
+    return port, ref
+
+
+def test_minicredit_sweep_matches_jax_package_contention_included(minicredit_pair):
+    """The contention payload's records are the numpy arm's in both packages:
+    equal, field for field; the torch arm ran beside it and agreed exactly on
+    this grid (open arm bit for bit, credit arm within the parity gate)."""
+    port, ref = minicredit_pair
+    _assert_records_match(port.records, ref.records)
+    a, b = port.contention, ref.contention
+    assert len(a["records"]) == 12  # 2 configs × 2 routing arms × (open + 2 depths)
+    assert a["records"] == b["records"]
+    assert a["noc_params"] == b["noc_params"] and a["parity_rtol"] == b["parity_rtol"]
+    assert a["buffer_depths"] == b["buffer_depths"] == [1.0, 4.0]
+    assert a["backends"] == ["numpy", "torch"]
+    assert a["credit_inf_numpy_max_abs"] == b["credit_inf_numpy_max_abs"] == 0.0
+    assert a["credit_inf_torch_max_rel"] == 0.0
+    assert a["backend_parity_max_rel"] <= 1e-9
+    numpy_keys = {k for k in a["timings"] if k.endswith("_numpy_s")}
+    assert numpy_keys == {k for k in b["timings"] if k.endswith("_numpy_s")}
+    assert {k for k in a["timings"] if k.endswith("_torch_s")} == {
+        k.replace("_numpy_s", "_torch_s") for k in numpy_keys
+    }
+    assert port.timings["contention_s"] > 0
+    assert port.to_dict()["contention"]["records"] == a["records"]
+
+
+def test_fault_rates_axis_is_not_an_axis_of_run_sweep(mini_pair):
+    """As in the reference package, `run_sweep` ignores `grid.fault_rates`
+    (the resilience runner owns that axis)."""
+    port, _, _ = mini_pair
+    res = run_sweep(dataclasses.replace(GRIDS["mini"], fault_rates=(0.0, 0.05)), device="cpu",
+                    measure_serial=False)
+    _assert_records_match(res.records, port.records)
 
 
 def test_run_sweep_defaults_to_the_card():
