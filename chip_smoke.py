@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Three paths, each driven with its kernel's launch count set to 0 just before
-and read just after:
+and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
   partition → traffic → stacked placement search → stacked analytic
@@ -18,7 +18,13 @@ and read just after:
   runner (the `faults` grid: mesh2d/torus2d × 5 fault rates, 10 units, then
   resumed from its journal); its kernel is `segment_spmm` (every ELL bucket
   of a PageRank reduce in one launch, `csrc/ell_spmm.cu`), launched by the
-  traces of all three runs;
+  traces of all three runs.  Then the same pipeline as its users run it,
+  through the sweep CLI (`repro_torch.experiments.run.main`, in process):
+  `--grid backpressure` and `--grid faults` (20 units, then `--resume`) on
+  amazon and soc-pokec (1,600,000 nodes, 30,600,000 edges) at scale 1.0, and
+  `--grid paper` at its own scale 0.01 (48 configurations, the four Table-2
+  workloads), whose records must equal the reference package's committed
+  numpy run (`BENCH_sweep.json`) field for field but the wall time;
 * LM serving: `repro_torch.launch.serve.build_engine` on llama3.2-3b at its
   published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
@@ -55,6 +61,11 @@ Phases, one JSON line each:
   faults     `run_resilience` with the torch arm: every unit completes, parity
              within 1e-6 (0 at rate 0), a resumed run served from the journal
              and byte-identical
+  cli        the sweep CLI: backpressure, faults (then resumed: byte-identical,
+             no trace) and paper, each with a cold cache of its own; wall time
+             and stage split a grid, one `segment_spmm` launch a PageRank
+             iteration, `--check` clean on the port's EXPERIMENTS.md and
+             BENCH_sweep.json, the paper records equal to the committed ones
   attention  `flash_attention` against its plain version (test shapes, f32
              and bf16, and the serve path's shapes; two runs bit-equal), its
              time and TFLOP/s at every path shape beside the operation bound
@@ -130,6 +141,13 @@ BAG_MULTI_HOT, BAG_MULTI_BATCH = 8, 8_192
 BAG_SOURCE = "src/repro_torch/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag/kernel.py:51"
 SECTOR_BYTES = 32  # the unit in which device memory serves a gathered row
+
+# the sweep CLI: the backpressure and faults grids as users run them (amazon
+# and soc-pokec), and the reference package's committed numpy run of the
+# paper grid (its own scale, 0.01, seed 0) that the port's paper records
+# must equal field for field but the wall time
+CLI_SCALE = 1.0
+COMMITTED_BENCH = ROOT / "BENCH_sweep.json"
 
 # windowed NoC replay: the credit arm's torch stepper against numpy's, relative
 # to each timeline's peak (its contractions sum in another order; ~1e-15 seen)
@@ -1440,6 +1458,150 @@ def phase_recsys(device: torch.device, seed: int, smi: str | None, timer: Timer)
     return out, launches
 
 
+# --------------------------------------------------------------------------- sweep CLI
+
+
+def _pagerank_iterations(records: list[dict]) -> int:
+    """One `segment_spmm` launch a PageRank iteration, one trace a workload."""
+    return sum({r["workload"]: r["num_iterations"] for r in records if r["algorithm"] == "pagerank"}.values())
+
+
+def phase_cli(smi: str | None) -> tuple[dict, int]:
+    """The sweep CLI as its users run it (`python -m repro_torch.experiments.run`),
+    in process so the launch counts can be read: `--grid backpressure` and
+    `--grid faults` at CLI_SCALE (amazon and soc-pokec), the faults grid again
+    with `--resume`, then `--grid paper` at its own scale rendering the port's
+    EXPERIMENTS.md with both folded in; `--check` on those outputs, and the
+    paper records against the reference package's committed numpy run of the
+    same grid, scale and seed (`BENCH_sweep.json`).  Each grid has a cache of
+    its own, so each traces."""
+    import os
+    import tempfile
+
+    from repro_torch.experiments import report
+    from repro_torch.experiments.grid import GRIDS
+    from repro_torch.experiments.run import main as run_main
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
+
+    def drive(*argv: str) -> tuple[float, int]:
+        segment_spmm.launches = ell_spmm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = run_main([*argv, "-q"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"run {' '.join(argv)} exited {rc}")
+        check(ell_spmm.launches == 0, f"run {' '.join(argv)} launched the one-bucket kernel")
+        return wall, segment_spmm.launches
+
+    def finite(values) -> bool:
+        return all(np.isfinite(v) for v in values if isinstance(v, float))
+
+    scale = f"{CLI_SCALE:g}"
+    cuts = [] if CLI_SCALE == 1.0 else [f"backpressure and faults grids at --scale {scale}"]
+    out: dict = {"scale": CLI_SCALE, "cuts": cuts}
+    with tempfile.TemporaryDirectory() as tmp:
+        sweeps = os.path.join(tmp, "sweeps")
+
+        def paths(grid: str) -> list[str]:
+            return ["--sweeps-dir", sweeps, "--cache-dir", os.path.join(tmp, f"cache_{grid}")]
+
+        # 1. backpressure: both routing arms, open loop and credit at every depth
+        wall, launches = drive("--grid", "backpressure", "--scale", scale, *paths("backpressure"))
+        with open(os.path.join(sweeps, "backpressure.json")) as f:
+            bp = json.load(f)
+        cont = bp["contention"]
+        check(len(bp["records"]) == GRIDS["backpressure"].num_configs == 12, "backpressure: 12 configurations")
+        check(len(cont["records"]) == 12 * 2 * (len(cont["buffer_depths"]) + 1), "a contention record an arm")
+        check(cont["backends"] == ["numpy", "torch"] and cont["backend_parity_max_rel"] <= cont["parity_rtol"],
+              f"backpressure numpy↔torch parity {cont['backend_parity_max_rel']}")
+        check(cont["credit_inf_numpy_max_abs"] == 0.0 and cont["credit_inf_torch_max_rel"] <= cont["parity_rtol"],
+              "credit@inf differs from the open arm")
+        check(all(finite(r.values()) for r in bp["records"] + cont["records"]), "non-finite backpressure record")
+        check(launches == _pagerank_iterations(bp["records"]) > 0,
+              f"backpressure: {launches} segment_spmm launches, not one a PageRank iteration")
+        soc = bp["workload_stats"]["soc-pokec"]
+        out["backpressure"] = {
+            "wall_s": wall, "timings": bp["timings"], "records": len(bp["records"]),
+            "contention_records": len(cont["records"]), "parity_max_rel": cont["backend_parity_max_rel"],
+            "credit_inf_torch_max_rel": cont["credit_inf_torch_max_rel"],
+            "min_speedup": min(c["speedup"] for c in bp["comparisons"]),
+            "segment_spmm_launches": launches, "ell_spmm_launches": 0,
+        }
+        out["soc_pokec"] = {"scale": CLI_SCALE, "nodes": soc["num_nodes"], "edges": soc["num_edges"],
+                            "max_degree": soc["max_degree"]}
+
+        # 2. faults: every unit, then the same command resumed from its journal
+        fargs = ("--grid", "faults", "--scale", scale, "--journal", os.path.join(tmp, "faults.journal.json"),
+                 *paths("faults"))
+        wall, launches = drive(*fargs)
+        with open(os.path.join(sweeps, "faults.json"), "rb") as f:
+            first = f.read()
+        resume_wall, resume_launches = drive(*fargs, "--resume")
+        with open(os.path.join(sweeps, "faults.json"), "rb") as f:
+            resumed = f.read()
+        fl = json.loads(first)
+        check(fl["backend"] == "numpy+torch", f"faults backend {fl['backend']}")
+        fl = fl["faults"]
+        n_units = len(GRIDS["faults"].workloads) * len(GRIDS["faults"].topologies) * len(GRIDS["faults"].fault_rates)
+        check(len(fl["records"]) == n_units == 20 and fl["quarantined"] == {},
+              f"{len(fl['records'])} of 20 units, quarantined: {sorted(fl['quarantined'])}")
+        check(fl["backend_parity_max_rel"] <= fl["parity_rtol"], f"faults parity {fl['backend_parity_max_rel']}")
+        check(all(r["backend_parity_rel"] == 0.0 for r in fl["records"] if r["fault_rate"] == 0.0),
+              "the open arm at rate 0 is not bit-equal")
+        check(all(finite(r[s].values()) for r in fl["records"] for s in ("proposed", "baseline")),
+              "non-finite faults record")
+        check(all(row["batch_parity"] for row in fl["repair"]), "repair_batch differs from the serial repair")
+        check(launches > 0, "the faults grid launched segment_spmm no time")
+        check(resumed == first, "the resumed faults artifact differs")
+        check(resume_launches == 0, "the resumed faults run traced again")
+        out["faults"] = {
+            "wall_s": wall, "units": len(fl["records"]), "quarantined": len(fl["quarantined"]),
+            "parity_max_rel": fl["backend_parity_max_rel"], "repair_rows": len(fl["repair"]),
+            "min_win_at_10pct": min(r["win"] for r in fl["records"] if r["fault_rate"] == 0.10),
+            "segment_spmm_launches": launches, "ell_spmm_launches": 0,
+            "resume_wall_s": resume_wall, "resume_byte_identical": True,
+        }
+
+        # 3. paper at its own scale: the port's report, §Backpressure and §Resilience folded in
+        md, js = os.path.join(tmp, "EXPERIMENTS.md"), os.path.join(tmp, "BENCH_sweep.json")
+        wall, launches = drive("--grid", "paper", "--md", md, "--json", js, *paths("paper"))
+        with open(md) as f:
+            text = f.read()
+        with open(js) as f:
+            paper = json.load(f)
+        check(all(f"## §{s}" in text for s in ("Calibration", "Perf", "Backpressure", "Resilience")),
+              "the paper report lacks a section")
+        check(launches == _pagerank_iterations(paper["records"]) > 0,
+              f"paper: {launches} segment_spmm launches, not one a PageRank iteration")
+
+        # 4. the freshness audit on those outputs
+        issues = report.experiments_md_issues(md, js, sweeps)
+        check(issues == [] and report.main(["--check", "--md", md, "--json", js, "--sweeps-dir", sweeps]) == 0,
+              f"--check: {issues}")
+
+    # 5. the paper records against the reference's committed numpy run
+    with open(COMMITTED_BENCH) as f:
+        bench = json.load(f)
+    keys_equal = [r["key"] for r in paper["records"]] == [r["key"] for r in bench["records"]]
+    differing = [(a["key"], k) for a, b in zip(paper["records"], bench["records"])
+                 for k in sorted(set(a) | set(b)) if k != "elapsed_us" and a.get(k) != b.get(k)]
+    equal = keys_equal and paper["grid"] == bench["grid"] and not differing
+    out["paper"] = {
+        "wall_s": wall, "timings": paper["timings"], "records": len(paper["records"]),
+        "scale": paper["grid"]["scale"], "placement_stats": paper["placement_stats"],
+        "segment_spmm_launches": launches, "ell_spmm_launches": 0,
+    }
+    out.update(check_issues=issues, paper_records_equal_committed=equal, paper_fields_differing=differing[:20],
+               card=smi,
+               timing="wall_s: host clock around run_main, closed by a device synchronise; timings: the "
+                      "payload's own stage split (obs spans); each grid with a cold cache of its own")
+    say("cli", **out)
+    check(equal, f"paper records differ from the committed BENCH_sweep.json: {differing[:20]}")
+    total = sum(out[g]["segment_spmm_launches"] for g in ("backpressure", "faults", "paper"))
+    return out, total
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -1491,6 +1653,8 @@ def main() -> int:
                                 scale=scale, seed=args.seed)
     _, faults_launches = phase_faults(device, fgrid, graph, info["nvidia_smi"])
     del graph, small
+    _, cli_launches = phase_cli(info["nvidia_smi"])
+    torch.cuda.empty_cache()
     attn = phase_attention(device, timer)
     _, fa_launches = phase_serve(device, args.seed, info["nvidia_smi"])
     torch.cuda.empty_cache()
@@ -1501,6 +1665,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "ell_spmm", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "launches_contention": noc_launches, "launches_faults": faults_launches,
+        "launches_cli": cli_launches,
         "max_abs_err": max(kern["max_abs_err_f32"], kern["real_bucket_max_abs_err"]),
         "max_abs_err_bf16": kern["max_abs_err_bf16"],
         "ms": kern["kernel_ms"], "call_ms": kern["kernel_call_ms"], "plain_ms": kern["ref_ms"],

@@ -14,6 +14,9 @@ topology × mesh size) drives the whole paper evaluation:
   sweep    — orchestration: expand the grid, trace (cached), partition,
              place, batch-evaluate, pair proposed-vs-baseline rows into the
              paper's Fig. 5/7/8 comparisons.
+  report   — renders sweep results into the port's EXPERIMENTS.md and
+             BENCH_sweep.json (under `artifacts/torch/`), and `--check`.
+  run      — CLI: `python -m repro_torch.experiments.run --grid paper`.
 """
 from repro_torch.experiments.batched import (
     batched_weighted_hops,

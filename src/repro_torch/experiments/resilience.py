@@ -32,11 +32,16 @@ records come from the float64 numpy reference) the resumed artifact is
 byte-identical to an uninterrupted run.  A unit that raises or exceeds
 `unit_timeout_s` lands on the quarantine list instead of killing the sweep;
 quarantined units are retried on the next resume.
+
+Set `REPRO_FAULTS_UNIT_DELAY` (seconds) to sleep after each unit's journal
+flush — the crash-resume test's kill window.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
+import time
 
 import numpy as np
 import torch
@@ -239,6 +244,7 @@ def run_resilience(
 
     if graphs is None:
         graphs = table2_workloads(scale=grid.scale, seed=grid.seed, names=grid.workloads)
+    unit_delay = float(os.environ.get("REPRO_FAULTS_UNIT_DELAY", "0") or 0)
     fail_window = noc_params.windows // 2
     records: list[dict] = []
     repair_rows: list[dict] = []
@@ -311,6 +317,8 @@ def run_resilience(
                             f"[faults:{grid.name}] {uid} win "
                             f"{rec['win']:.2f}x ({rec['num_dead_links']} dead links)"
                         )
+                        if unit_delay > 0:
+                            time.sleep(unit_delay)
 
     result = ResilienceResult(
         grid=grid,

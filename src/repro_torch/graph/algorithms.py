@@ -17,7 +17,7 @@ from repro_torch.graph.structs import HostGraph
 from repro_torch.graph.vertex_program import VertexProgram
 
 __all__ = ["bfs_program", "sssp_program", "pagerank_program", "ALGORITHMS",
-           "prepare_graph", "pagerank_edge_weights",
+           "prepare_graph", "pagerank_edge_weights", "fma_f32",
            "reference_bfs", "reference_sssp", "reference_pagerank"]
 
 
@@ -51,6 +51,28 @@ def sssp_program() -> VertexProgram:
     )
 
 
+def fma_f32(a: float, x: torch.Tensor, c: torch.Tensor | float) -> torch.Tensor:
+    """`a·x + c` for float32 `x`, rounded once to float32, on any device.
+
+    The reference package's PageRank update `base + damping * temp` is one
+    fused multiply-add in the code XLA's CPU backend emits (it contracts the
+    product into the sum), so its trace carries FMA bits; two roundings
+    differ in the last place of about a fifth of the vertices, and the trace
+    counts a vertex as active when its value changes at all.  Here the
+    product is exact in float64 (24 × 24 significant bits), TwoSum gives the
+    error of the float64 sum, and rounding that sum to odd before the float32
+    rounding makes the two roundings one (Boldo & Melquiond, 2008: valid for
+    53 ≥ 24 + 2 bits)."""
+    p = x.double() * float(np.float32(a))
+    c64 = torch.as_tensor(c, dtype=torch.float64, device=x.device)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)  # p + c == s + err exactly
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    return torch.where(inexact_even, torch.nextafter(s, toward), s).float()
+
+
 def pagerank_program(damping: float = 0.85) -> VertexProgram:
     def init(num_nodes: int, source: int, device: torch.device):
         props = torch.full((num_nodes + 1,), 1.0 / num_nodes, dtype=torch.float32, device=device)
@@ -74,7 +96,7 @@ def pagerank_program(damping: float = 0.85) -> VertexProgram:
         return p * w
 
     def apply(prop, temp, aux):
-        return aux["base"] + damping * temp
+        return fma_f32(damping, temp, aux["base"])
 
     return VertexProgram(
         name="pagerank",

@@ -56,6 +56,30 @@ def test_pagerank_scatter_trace_equals_jax(request, fixture):
 
 
 @pytest.mark.parametrize("fixture", ["rmat_graph", "small_powerlaw"])
+def test_pagerank_scatter_props_equal_jax_bit_for_bit(request, fixture):
+    """With the reference's summation order (a segment sum in edge order) and
+    its one-rounding update, the ranks are the reference's bits."""
+    g = request.getfixturevalue(fixture)
+    got, want = _both("pagerank", g, reduce_impl="scatter")
+    np.testing.assert_array_equal(got.props, want.props)
+
+
+def test_fma_f32_gives_the_references_contracted_update():
+    """XLA's CPU backend emits PageRank's `base + damping * temp` as one fused
+    multiply-add; `fma_f32` gives its bits, where two roundings do not."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    temp = np.exp(rng.uniform(np.log(1e-9), np.log(1e2), 200_000)).astype(np.float32)
+    for base in (np.float32(0.15 / 54_000), np.float32(0.15 / 3_040), np.float32(0.15)):
+        want = np.asarray(jax.jit(lambda t: base + 0.85 * t)(jnp.asarray(temp)))
+        got = alg.fma_f32(0.85, torch.from_numpy(temp), torch.tensor(base)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert ((base + np.float32(0.85) * temp) != want).any()
+
+
+@pytest.mark.parametrize("fixture", ["rmat_graph", "small_powerlaw"])
 def test_pagerank_ell_matches_jax_and_host_reference(request, fixture):
     """The ELL path sums each row in another order than a segment sum."""
     g = request.getfixturevalue(fixture)

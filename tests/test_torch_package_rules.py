@@ -44,7 +44,8 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/launch/train.py", "src/repro_torch/nocsim/model.py",
                  "src/repro_torch/nocsim/batch.py", "src/repro_torch/nocsim/credit.py",
                  "src/repro_torch/faults/degraded.py", "src/repro_torch/obs/recorder.py",
-                 "src/repro_torch/experiments/journal.py", "src/repro_torch/experiments/resilience.py"):
+                 "src/repro_torch/experiments/journal.py", "src/repro_torch/experiments/resilience.py",
+                 "src/repro_torch/experiments/run.py", "src/repro_torch/experiments/report.py"):
         assert must in names
     for cu in ("ell_spmm.cu", "flash_attention.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
@@ -127,6 +128,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.traffic import TrafficMatrix
     from repro_torch.experiments.grid import GRIDS
     from repro_torch.experiments.resilience import run_resilience
+    from repro_torch.experiments.run import main as run_main
     from repro_torch.faults import FaultSet, degraded_batch
     from repro_torch.nocsim import NocSimParams, build_credit_program, contended_batch, run_credit
     from repro_torch.nocsim.batch import _open_step_torch, open_step
@@ -166,6 +168,8 @@ def test_entry_points_default_to_the_card():
         lambda: simulate_contended(tm, pl, noc_params=noc, backend="torch"),
         lambda: run_resilience(GRIDS["minifaults"]),
         lambda: run_resilience(GRIDS["minifaults"], backend="numpy"),
+        lambda: run_main(["--grid", "mini", "-q"]),
+        lambda: run_main(["--grid", "minifaults", "--backend", "numpy", "-q"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
