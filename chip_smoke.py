@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths, each driven with its kernel's launch count set to 0 just before
+Four paths, each driven with its kernel's launch count set to 0 just before
 and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -30,6 +30,13 @@ and read just after (the paper pipeline once more through its CLI):
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
   max_seq 4096, float32 KV cache, 8 requests of 512-3072 prompt tokens and 32
   new tokens each; its kernel is `flash_attention` (every prefill layer);
+* GNNs: gin-tu, gat-cora, pna and graphcast at their published widths and
+  depths on the `full_graph_sm` cell (R-MAT, 2,708 nodes, 10,556 edges,
+  d_in 1,433; graphcast's mesh at refinement 4), gin-tu on `molecule` (128
+  graphs of 30 nodes), and gin-tu on the amazon graph above at the
+  `ogb_products` feature width (100), through `models.gnn.forward` and
+  `loss_fn` under `inference_mode`; its kernel is `segment_spmm` (GIN's
+  neighbour sum, once a layer, at D = d_in and then 64);
 * recsys: dcn-v2 at its published configuration (26 tables × 1,000,000 × 16,
   cross 3 × 429², MLP 1024-1024-512: 418,569,930 float32 params from a seeded
   generator on the card) — the `RECSYS_SHAPES` cells `serve_p99` (batch 512),
@@ -61,6 +68,13 @@ Phases, one JSON line each:
   faults     `run_resilience` with the torch arm: every unit completes, parity
              within 1e-6 (0 at rate 0), a resumed run served from the journal
              and byte-identical
+  gnn        the four GNN archs at published width: finite outputs and losses,
+             GIN's ELL route against its scatter route, one `segment_spmm`
+             launch a GIN layer and none elsewhere; gin-tu on amazon at d_in
+             100: host batch and `build_ell` seconds, forward wall and device
+             time by kernel, busy share, and one reduce at D = 100 and 64 beside
+             its bound, `torch.sparse.mm`, the scatter route, the plain version
+             and the same launch without its hub rows
   cli        the sweep CLI: backpressure, faults (then resumed: byte-identical,
              no trace) and paper, each with a cold cache of its own; wall time
              and stage split a grid, one `segment_spmm` launch a PageRank
@@ -181,6 +195,31 @@ MODEL_TOL = dict(rtol=2e-3, atol=2e-3)  # float32 logits, as tests/test_models.p
 # (and decode) must be no less accurate against the float32 model than the
 # plain route is (mean abs error, within this factor)
 BF16_ROUTE_FACTOR = 1.5
+
+
+# GNNs: the four archs at their published widths on full_graph_sm, then gin-tu
+# on the amazon graph at ogb_products' feature width (tools/gnn_full_scale.py
+# runs ogb_products' own size)
+GNN_ARCH = "gin-tu"
+GNN_WIDE_CELL = "ogb_products"
+# float32 logits of the ELL route against the scatter route: the same sums in
+# another order, through 5 layers with LayerNorm
+GNN_TOL = dict(rtol=1e-4, atol=1e-4)
+# one neighbour sum of N(0, 1) rows against another route, in another order:
+# up to 23,552 terms on amazon (sums ~150 in magnitude), over 131,072 at
+# ogb_products' size
+GIN_REDUCE_TOL = dict(rtol=2e-3, atol=1e-3)
+GIN_KERNEL_GROUPS = {"segment_fused_ms": ("segment_fused",), "gemm_ms": ("gemm", "xmma", "cutlass")}
+GNN_CUTS = [
+    "weights random from a seeded generator (no trained checkpoint)",
+    "graphs are seeded R-MAT with features and labels planted by GraphBatcher, not Cora/TU/ogbn-products",
+    "graphcast: full_graph_sm's 2,708 grid nodes, its mesh at refinement 4 (2,562 nodes, 20,460 m2m edges) "
+    "with random edges and features, as tests/test_arch_smoke.py makes them; no icosahedral geometry",
+    "gin-tu at ogb_products' width (d_in 100) runs on amazon (304,000 nodes, 4,300,000 edges), the graph the "
+    "other phases hold; ogb_products' own size is tools/gnn_full_scale.py",
+    "forward and loss only: GNN training waits for the ELL reduce's backward (ROADMAP.md Queue B 4)",
+    "minibatch_lg (fanout-sampled batches) is not driven on the card",
+]
 
 
 _LAST_LINE = [time.perf_counter()]
@@ -826,6 +865,239 @@ def phase_faults(device: torch.device, grid, graph, smi: str | None) -> tuple[di
     return out, launches
 
 
+# --------------------------------------------------------------------------- GNNs
+
+
+def graphcast_batch(n_grid: int, cfg, seed: int) -> dict:
+    """GraphCast's batch at `n_grid` grid nodes: grid features, the planned
+    multimesh's node count, random g2m/m2m/m2g edges and edge features, drawn
+    from a seeded numpy generator as `tests/test_arch_smoke.py` draws them."""
+    from repro_torch.models.gnn import graphcast_mesh_plan
+
+    rng = np.random.default_rng(seed)
+    plan = graphcast_mesh_plan(n_grid, cfg.mesh_refinement)
+    m = plan["n_mesh"]
+    b = {"x": rng.standard_normal((n_grid, cfg.d_in)).astype(np.float32),
+         "mesh_x": rng.standard_normal((m, 3)).astype(np.float32),
+         "labels": rng.standard_normal((n_grid, cfg.d_out)).astype(np.float32),
+         "node_mask": np.ones(n_grid, bool)}
+    for pre, cnt, ns, nd in (("g2m", plan["e_g2m"], n_grid, m), ("m2m", plan["e_m2m"], m, m),
+                             ("m2g", plan["e_m2g"], m, n_grid)):
+        b[f"{pre}_src"] = rng.integers(0, ns, cnt).astype(np.int32)
+        b[f"{pre}_dst"] = rng.integers(0, nd, cnt).astype(np.int32)
+        b[f"{pre}_feat"] = rng.standard_normal((cnt, 4)).astype(np.float32)
+        b[f"{pre}_mask"] = np.ones(cnt, bool)
+    return b
+
+
+def gin_reduce_bound_ms(x: torch.Tensor, ell) -> float:
+    """Least time for one GIN neighbour sum on these inputs: the rows of x that
+    some edge reads, the real cols (one int32 an edge) and the (N, D) output,
+    each once, over the memory rate (it is bound by bytes: one multiply-add
+    an edge and feature)."""
+    n, d = x.shape
+    cols = ell.work().cols
+    real = cols[(cols >= 0) & (cols < n)]
+    nbytes = int(torch.unique(real).numel()) * d * 4 + real.numel() * 4 + n * d * 4
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def without_hub_items(ell):
+    """`ell` with the hub items (rows of width ≥ ELL_HUB_WIDTH) left out of its
+    work table: the fused launch then skips their rows (timing only)."""
+    from repro_torch.graph.structs import ELL_HUB_WIDTH, EllWork
+
+    w = ell.work()
+    keep = w.items[:, 2] < ELL_HUB_WIDTH
+    return dataclasses.replace(ell, _work=EllWork(w.rows, w.cols, w.weights, w.items[keep], w.zero_rows))
+
+
+def gin_at_scale(device: torch.device, graph, timer: Timer, *, seed: int, full_scatter: bool) -> tuple[dict, int]:
+    """gin-tu at its published width (5 layers of 64, 16 classes) with the
+    `ogb_products` feature width (100) on `graph`, through `models.gnn`'s
+    entry points: the host's batch and ELL, a forward on the ELL route (wall,
+    device time by kernel, busy share), checked against the scatter route
+    (the whole forward when `full_scatter`, else one layer's sum at each
+    width: it materialises E × D messages) and the plain version; then one
+    reduce at D = 100 and D = 64 timed beside its bound, `torch.sparse.mm`,
+    the scatter route's sum, the plain version and the same launch without
+    the hub items.  Returns the numbers and the `segment_spmm` launches of
+    the forwards."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import GraphBatcher, to_device
+    from repro_torch.graph.structs import ELL_HUB_WIDTH
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+    from repro_torch.models import gnn
+
+    cfg = get_arch(GNN_ARCH).model_config(GNN_WIDE_CELL)
+    scatter = dataclasses.replace(cfg, reduce_impl="scatter")
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    host = GraphBatcher(graph, d_feat=cfg.d_in, n_classes=cfg.d_out, seed=seed).full_batch()
+    batch_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ell = gnn.batch_ell(host, device=device)
+    work = ell.work()
+    torch.cuda.synchronize()
+    build_ell_s = time.perf_counter() - t0
+    batch = to_device(host, device)
+    batch["ell"] = ell
+    params = gnn.init_params(cfg, seed, device=device)
+
+    before = segment_spmm.launches
+    with torch.inference_mode():
+        out = gnn.forward(params, batch, cfg)
+        loss = float(gnn.loss_fn(params, batch, cfg))
+        torch.cuda.synchronize()
+        check(segment_spmm.launches - before == 2 * cfg.n_layers, "a GIN forward: one launch a layer")
+        check(out.shape == (n, cfg.d_out) and bool(torch.isfinite(out).all()) and np.isfinite(loss),
+              "gin on the large graph: finite logits of the right shape")
+        forward_wall_ms = wall_ms(lambda: gnn.forward(params, batch, cfg))
+        prof = profile_window(lambda: gnn.forward(params, batch, cfg), groups=GIN_KERNEL_GROUPS)
+        prof["other_ms"] = prof["device_ms"] - prof["segment_fused_ms"] - prof["gemm_ms"]
+        err = scatter_wall_ms = None
+        if full_scatter:
+            other = gnn.forward(params, batch, scatter)
+            torch.cuda.synchronize()
+            err = float((out - other).abs().max())
+            check(torch.allclose(out, other, **GNN_TOL), f"gin on the large graph: ell vs scatter {err}")
+            del other
+            scatter_wall_ms = wall_ms(lambda: gnn.forward(params, batch, scatter))
+    launches = segment_spmm.launches - before
+
+    idx = torch.from_numpy(np.stack([graph.dst, graph.src]).astype(np.int64)).to(device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Sparse")  # torch's beta notices
+        a_csr = torch.sparse_coo_tensor(idx, torch.ones(graph.num_edges, device=device), (n, n)).coalesce()
+        a_csr = a_csr.to_sparse_csr()
+    del idx
+    no_hub = without_hub_items(ell)
+    rng = np.random.default_rng(seed)
+    reduces = {}
+    with torch.inference_mode():
+        for d in (cfg.d_in, cfg.d_hidden):
+            x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(device)
+            hb = {"x": x, "src": batch["src"], "dst": batch["dst"], "edge_mask": batch["edge_mask"]}
+            got, again = segment_spmm(x, ell), segment_spmm(x, ell)
+            lib = torch.sparse.mm(a_csr, x)
+            torch.cuda.synchronize()
+            r = {"D": d, "bit_equal_two_runs": bool(torch.equal(got, again)),
+                 "max_abs_err_vs_library": float((got - lib).abs().max())}
+            check(r["bit_equal_two_runs"], f"two runs of the reduce differ at D={d}")
+            check(torch.allclose(got, lib, **GIN_REDUCE_TOL), f"reduce vs torch.sparse.mm at D={d}")
+            del lib
+            want = segment_spmm_ref(x, ell)
+            r["max_abs_err_vs_plain"] = float((got - want).abs().max())
+            check(torch.allclose(got, want, **GIN_REDUCE_TOL), f"reduce vs its plain version at D={d}")
+            del want
+            sc = gnn.gin_sum(x, hb, scatter)
+            r["max_abs_err_vs_scatter"] = float((got - sc).abs().max())
+            check(torch.allclose(got, sc, **GIN_REDUCE_TOL), f"reduce vs the scatter route at D={d}")
+            del sc, got, again
+            torch.cuda.empty_cache()
+            r["ms"] = timer.device_ms(lambda: segment_spmm(x, ell), calls=10)
+            r["call_ms"] = timer.call_ms(lambda: segment_spmm(x, ell), calls=10)
+            r["no_hub_ms"] = timer.device_ms(lambda: segment_spmm(x, no_hub), calls=10)
+            r["bound_ms"], r["bound_by"] = gin_reduce_bound_ms(x, ell), "bytes"
+            r["library_ms"] = timer.call_ms(lambda: torch.sparse.mm(a_csr, x), calls=10)
+            r["library_device_ms"] = timer.device_ms(lambda: torch.sparse.mm(a_csr, x), calls=10)
+            r["scatter_ms"] = timer.call_ms(lambda: gnn.gin_sum(x, hb, scatter), calls=2, reps=5)
+            torch.cuda.empty_cache()
+            r["plain_ms"] = timer.call_ms(lambda: segment_spmm_ref(x, ell), calls=1, reps=3)
+            torch.cuda.empty_cache()
+            reduces[f"D{d}"] = r
+    hub = work.items[:, 2] >= ELL_HUB_WIDTH
+    out = {
+        "arch": GNN_ARCH, "cell_widths": GNN_WIDE_CELL, "params": cfg.num_params, "nodes": n,
+        "edges": graph.num_edges, "d_in": cfg.d_in, "loss": loss,
+        "batch_host_s": batch_host_s, "build_ell_host_s": build_ell_s,
+        "ell": {"work_items": int(work.items.shape[0]), "hub_items": int(hub.sum()),
+                "max_width": int(work.items[:, 2].max()), "fill": ell.fill_fraction(),
+                "vertices_in_no_bucket": int(work.zero_rows.numel())},
+        "forward_wall_ms": forward_wall_ms, "forward_profile": prof,
+        "scatter_forward_wall_ms": scatter_wall_ms, "ell_vs_scatter_max_abs_err": err,
+        "reduce": reduces,
+    }
+    return out, launches
+
+
+def phase_gnn(device: torch.device, graph, seed: int, smi: str | None, timer: Timer) -> tuple[dict, int]:
+    """The four GNN archs at their published widths and depths on
+    `full_graph_sm`, gin-tu on `molecule`, and gin-tu on the large graph
+    (`gin_at_scale`); `segment_spmm` launches of their forwards."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import arch_ids, get_arch
+    from repro_torch.data.pipeline import GraphBatcher, to_device
+    from repro_torch.graph.generators import rmat
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.models import gnn
+
+    sh = GNN_SHAPES["full_graph_sm"]
+    small = rmat(sh["n_nodes"], sh["n_edges"], seed=seed)
+    runs = [(arch, "full_graph_sm") for arch in arch_ids("gnn")] + [(GNN_ARCH, "molecule")]
+    segment_spmm.launches = 0
+    archs = {}
+    for arch, cell in runs:
+        cfg = get_arch(arch).model_config(cell)
+        params = gnn.init_params(cfg, seed, device=device)
+        batcher = GraphBatcher(small, d_feat=cfg.d_in, n_classes=cfg.d_out, seed=seed)
+        if cfg.kind == "graphcast":
+            host = graphcast_batch(sh["n_nodes"], cfg, seed)
+        elif cell == "molecule":
+            mol = GNN_SHAPES["molecule"]
+            host = batcher.molecule_batch(mol["batch"], mol["n_nodes"], mol["n_edges"])
+        else:
+            host = batcher.full_batch()
+        batch = to_device(host, device)
+        if cfg.kind == "gin":
+            batch["ell"] = gnn.batch_ell(host, device=device)
+        with torch.inference_mode():
+            before = segment_spmm.launches
+            out = gnn.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            launches = segment_spmm.launches - before
+            loss = float(gnn.loss_fn(params, batch, cfg))
+            rows = host["labels"].shape[0]
+            check(tuple(out.shape) == (rows, cfg.d_out) and bool(torch.isfinite(out).all()) and np.isfinite(loss),
+                  f"{arch} on {cell}: finite outputs of shape ({rows}, {cfg.d_out})")
+            check(launches == (cfg.n_layers if cfg.kind == "gin" else 0),
+                  f"{arch}: {launches} segment_spmm launches in a forward")
+            r = {"kind": cfg.kind, "cell": cell, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+                 "d_in": cfg.d_in, "params": cfg.num_params, "out_shape": list(out.shape), "loss": loss,
+                 "segment_spmm_launches_a_forward": launches,
+                 "forward_wall_ms": wall_ms(lambda: gnn.forward(params, batch, cfg))}
+            if cfg.kind == "gin":
+                scatter = dataclasses.replace(cfg, reduce_impl="scatter")
+                other = gnn.forward(params, batch, scatter)
+                torch.cuda.synchronize()
+                r["ell_vs_scatter_max_abs_err"] = float((out - other).abs().max())
+                check(torch.allclose(out, other, **GNN_TOL), f"{arch} on {cell}: ell vs scatter route")
+                r["scatter_forward_wall_ms"] = wall_ms(lambda: gnn.forward(params, batch, scatter))
+            if cfg.kind == "graphcast":
+                r["mesh"] = gnn.graphcast_mesh_plan(sh["n_nodes"], cfg.mesh_refinement)
+        archs[f"{arch}@{cell}"] = r
+        del params, batch
+    torch.cuda.empty_cache()
+    launches = segment_spmm.launches  # the forwards of the five runs (and their timing)
+    wide, wide_launches = gin_at_scale(device, graph, timer, seed=seed, full_scatter=True)
+    launches += wide_launches
+    out = {
+        "archs": archs, "amazon": wide, "segment_spmm_launches": launches, "tolerance_ell_vs_scatter": GNN_TOL,
+        "tolerance_reduce": GIN_REDUCE_TOL, "card": smi,
+        "cuts": GNN_CUTS,
+        "timing": "forward_wall_ms: host clock around one forward that ends in a synchronise, warm median "
+                  "of 3, under inference_mode; forward_profile: torch.profiler over one forward (device time "
+                  "by kernel, summed; busy share = that sum over the profiled wall); reduce.*: one "
+                  "segment_spmm on random N(0,1) x of that width: ms and no_hub_ms replayed from a CUDA graph "
+                  "(device time), call_ms, library_ms, scatter_ms, plain_ms enqueued from Python, "
+                  "library_device_ms torch.sparse.mm (CSR) replayed; bound_ms: x's read rows, the real "
+                  "cols and the output once over 3.35 TB/s",
+    }
+    say("gnn", **out)
+    return out, launches
+
+
 # --------------------------------------------------------------------------- attention
 
 
@@ -952,9 +1224,15 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
 # --------------------------------------------------------------------------- serve
 
 
-def profile_window(fn) -> dict:
+ATTN_GROUPS = {"flash_attention_ms": ("attn_bf16_wgmma",)}
+
+
+def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
     """Device time by kernel over one call of `fn` (`torch.profiler`), summed
-    over device rows only, beside the wall time."""
+    over device rows only, beside the wall time; `groups` maps a key to the
+    kernel-name pieces whose device time it sums.  A session can lose its
+    first kernel (gin-tu's first reduce went missing from one), so a short
+    spin kernel goes first and is left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -967,16 +1245,20 @@ def profile_window(fn) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key), reverse=True)
+                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
+                   and "spin_kernel" not in e.key), reverse=True)
     total = sum(r[0] for r in rows) / 1e3
-    attn = sum(r[0] for r in rows if "attn_bf16_wgmma" in r[1]) / 1e3
+    by_group = {key: sum(r[0] for r in rows if any(p in r[1] for p in pieces)) / 1e3
+                for key, pieces in groups.items()}
     return {"wall_ms": wall * 1e3, "device_ms": total, "device_busy_share": total / (wall * 1e3),
-            "flash_attention_ms": attn,
+            **by_group,
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
 
 
@@ -1652,6 +1934,7 @@ def main() -> int:
     fgrid = dataclasses.replace(GRIDS["faults"], name="faults-amazon", workloads=("amazon",),
                                 scale=scale, seed=args.seed)
     _, faults_launches = phase_faults(device, fgrid, graph, info["nvidia_smi"])
+    gnn, gnn_launches = phase_gnn(device, graph, args.seed, info["nvidia_smi"], timer)
     del graph, small
     _, cli_launches = phase_cli(info["nvidia_smi"])
     torch.cuda.empty_cache()
@@ -1674,6 +1957,13 @@ def main() -> int:
         "library_device_ms": kern["library_device_ms"], "per_bucket_reduce_ms": kern["per_bucket_reduce_ms"],
         "launches_per_reduce": kern["launches_per_reduce"], "entry": "segment_spmm_launch (every bucket, one launch)",
         "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
+        "launches_gnn": gnn_launches,
+        "gin": {"shape": f"GIN's neighbour sum on amazon ({gnn['amazon']['nodes']:,} nodes, "
+                         f"{gnn['amazon']['edges']:,} edges, ELL of the reversed edges, weights 1), f32",
+                **{k: {f: r[f] for f in ("D", "ms", "call_ms", "no_hub_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library_device_ms", "scatter_ms", "max_abs_err_vs_plain",
+                                         "max_abs_err_vs_library", "max_abs_err_vs_scatter")}
+                   for k, r in gnn["amazon"]["reduce"].items()}},
     }, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": fa_launches,

@@ -1,11 +1,13 @@
-"""Architecture configurations the port can run: the dense LM and the recsys
-parts of `repro.configs.base`.
+"""Architecture configurations the port can run: the dense LM, GNN and
+recsys parts of `repro.configs.base`.
 
-An `LmArch` or `RecsysArch` knows its published configuration
-(`model_config()`), a reduced `smoke_config()` the CPU tests run, and
-`model_flops(cell)`, the useful-FLOPs yardstick (6·N·D train / 2·N·D
-forward).  There is no dry-run case, no mesh and no sharding here: those are
-multi-device work (ROADMAP.md Queue A 9).
+An `LmArch`, `GnnArch` or `RecsysArch` knows its published configuration
+(`model_config()`, a GNN's for one `GNN_SHAPES` cell), a reduced
+`smoke_config()` the CPU tests run, and `model_flops(cell)`, the useful-FLOPs
+yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case, no mesh
+and no sharding here: those are multi-device work (ROADMAP.md Queue A 9), and
+the dry-run's batch specs (`GnnArch.batch_specs`, ShapeDtypeStructs and
+PartitionSpecs) belong to the tooling of Queue A 10.
 """
 from __future__ import annotations
 
@@ -13,10 +15,12 @@ import dataclasses
 
 import torch
 
+from repro_torch.models.gnn import GnnConfig
 from repro_torch.models.recsys import DcnConfig
 from repro_torch.models.transformer import TransformerConfig
 
-__all__ = ["LM_SHAPES", "RECSYS_SHAPES", "LmArch", "RecsysArch"]
+__all__ = ["LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "N_CLASSES_DEFAULT", "LmArch", "GnnArch",
+           "RecsysArch"]
 
 LM_SHAPES: dict[str, tuple[str, int, int]] = {
     # name: (step kind, seq_len, global_batch)
@@ -26,12 +30,27 @@ LM_SHAPES: dict[str, tuple[str, int, int]] = {
     "long_500k": ("long_decode", 524_288, 1),
 }
 
+GNN_SHAPES: dict[str, dict] = {
+    "full_graph_sm": dict(n_nodes=2_708, n_edges=10_556, d_feat=1_433),
+    "minibatch_lg": dict(
+        n_nodes=232_965, n_edges=114_615_892, batch_nodes=1_024, fanout=(15, 10), d_feat=602
+    ),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    "molecule": dict(n_nodes=30, n_edges=64, batch=128, d_feat=32),
+}
+
 RECSYS_SHAPES: dict[str, dict] = {
     "train_batch": dict(batch=65_536, kind="train"),
     "serve_p99": dict(batch=512, kind="serve"),
     "serve_bulk": dict(batch=262_144, kind="serve"),
     "retrieval_cand": dict(batch=1, n_candidates=1_000_000, kind="retrieval"),
 }
+
+N_CLASSES_DEFAULT = 16  # synthetic label space for GNN cells
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 @dataclasses.dataclass
@@ -80,6 +99,79 @@ class LmArch:
         if kind == "prefill":
             return 2.0 * n * seq * batch
         return 2.0 * n * batch  # decode: one token per sequence
+
+
+@dataclasses.dataclass
+class GnnArch:
+    name: str
+    kind: str  # gin | gat | pna | graphcast
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    aggregators: tuple[str, ...] = ("sum",)
+    scalers: tuple[str, ...] = ("identity",)
+    mesh_refinement: int = 6
+    n_vars: int = 227
+    source: str = ""
+    family: str = "gnn"
+
+    def model_config(self, cell: str) -> GnnConfig:
+        """The published width and depth at one `GNN_SHAPES` cell (its feature
+        width; graph classification on `molecule`, regression for graphcast);
+        float32 params and activations."""
+        sh = GNN_SHAPES[cell]
+        task = "graph_class" if cell == "molecule" else "node_class"
+        d_out = N_CLASSES_DEFAULT
+        if self.kind == "graphcast":
+            task, d_out = "regression", self.n_vars
+        return GnnConfig(
+            self.name,
+            self.kind,
+            n_layers=self.n_layers,
+            d_hidden=self.d_hidden,
+            d_in=sh["d_feat"],
+            d_out=d_out,
+            task=task,
+            n_heads=self.n_heads,
+            aggregators=self.aggregators,
+            scalers=self.scalers,
+            mesh_refinement=self.mesh_refinement,
+            n_vars=self.n_vars,
+        )
+
+    def smoke_config(self) -> GnnConfig:
+        return GnnConfig(
+            self.name + "-smoke", self.kind, n_layers=2, d_hidden=16, d_in=8,
+            d_out=4, task="regression" if self.kind == "graphcast" else "node_class",
+            n_heads=min(2, self.n_heads), aggregators=self.aggregators,
+            scalers=self.scalers, n_vars=4,
+        )
+
+    def shape_cells(self) -> list[str]:
+        return list(GNN_SHAPES)
+
+    def model_flops(self, cell: str) -> float:
+        sh = GNN_SHAPES[cell]
+        cfg = self.model_config(cell)
+        n_nodes = sh["n_nodes"] * sh.get("batch", 1)
+        n_edges = sh["n_edges"] * sh.get("batch", 1)
+        # 6 × (dense param-FLOPs on nodes + message FLOPs on edges)
+        return 6.0 * (cfg.num_params * 1.0 * n_nodes / max(cfg.d_in, 1) + n_edges * self.d_hidden)
+
+    def _node_edge_counts(self, cell: str, n_devices: int) -> tuple[int, int]:
+        """(nodes, edges) of one batch of the cell, each rounded up to a
+        multiple of `n_devices`."""
+        sh = GNN_SHAPES[cell]
+        if cell == "molecule":
+            n = sh["n_nodes"] * sh["batch"]
+            e = sh["n_edges"] * sh["batch"]
+        elif cell == "minibatch_lg":
+            seeds, (f1, f2) = sh["batch_nodes"], sh["fanout"]
+            n = seeds * (1 + f1 + f1 * f2)
+            e = seeds * (f1 + f1 * f2)
+        else:
+            n, e = sh["n_nodes"], sh["n_edges"]
+        return _round_up(n, n_devices), _round_up(e, n_devices)
 
 
 @dataclasses.dataclass

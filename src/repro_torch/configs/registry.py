@@ -1,4 +1,5 @@
-"""--arch registry: the dense LM archs and dcn-v2, which the port can run.
+"""--arch registry: the dense LM archs, the GNNs and dcn-v2, which the port
+can run.
 
 The JAX package's other archs are known by name and raise
 `NotImplementedError` naming the ROADMAP.md item that brings them.
@@ -13,16 +14,16 @@ _MODULES = {
     "granite-34b": "granite_34b",
     "llama3.2-3b": "llama3_2_3b",
     "yi-34b": "yi_34b",
+    "gin-tu": "gin_tu",
+    "graphcast": "graphcast",
+    "gat-cora": "gat_cora",
+    "pna": "pna",
     "dcn-v2": "dcn_v2",
 }
 
 PENDING = {
     "qwen2-moe-a2.7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
     "olmoe-1b-7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
-    "gin-tu": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
-    "graphcast": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
-    "gat-cora": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
-    "pna": "GNNs (ROADMAP.md Queue A 8, models/gnn.py)",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -39,5 +40,5 @@ def get_arch(arch_id: str):
 
 
 def arch_ids(family: str) -> list[str]:
-    """The ported archs of one family ("lm" or "recsys")."""
+    """The ported archs of one family ("lm", "gnn" or "recsys")."""
     return [a for a in ARCH_IDS if get_arch(a).family == family]

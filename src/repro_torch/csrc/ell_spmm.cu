@@ -49,7 +49,15 @@
 //   * D >= 16: lanes run along D with 16-byte loads where D and the pointers
 //     allow (4 floats or 8 bfloat16 per thread), every thread loops over the W
 //     slots of its row (the cols/wts reads are the same address across a
-//     row's threads, one broadcast), and stores its slice.
+//     row's threads, one broadcast), and stores its slice.  The loop fetches
+//     four slots' rows before it adds them, in slot order, so four gathers
+//     are in flight a thread.  A hub row (W >= kBlockRowW) would leave all
+//     but d / V threads of its block idle, each walking all W slots in a
+//     chain of dependent gathers (16 threads and 32,768 slots for amazon's
+//     largest in-degree at D = 64): there the block's threads form
+//     kThreads / (d / V) groups, group g sums slots g, g + groups, ..., and
+//     the groups' partial sums meet in shared memory, added in group order
+//     by group 0.
 //   * The fused kernel runs each row with the same lanes and the same order of
 //     summation as the one-bucket kernels (the same device code), so the two
 //     routes give the same bits.  No atomics anywhere: each output element has
@@ -67,7 +75,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSmallD = 16;      // below: lanes along W; from here on: lanes along D
-constexpr int kBlockRowW = 1024; // from here on a row of the small-D regime takes a whole block
+constexpr int kBlockRowW = 1024; // from here on a row (a hub) takes a whole block
+constexpr int kUnroll = 4;       // D >= 16: slots fetched before they are added
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -165,14 +174,31 @@ __device__ __forceinline__ float block_row(const T* __restrict__ x, const int* c
   return s;
 }
 
-// D >= 16: V features of one row into `dst`
+// D >= 16: adds slots j0, j0 + step, ... (< w) of one row to the sums of V
+// features, in that order; kUnroll slots' rows are fetched before they are added
 template <typename T, int V>
-__device__ __forceinline__ void lanes_row(const T* __restrict__ x, const int* c, const float* ww, int n, int d,
-                                          int feat, int w, T* dst) {
-  float acc[V];
+__device__ __forceinline__ void lanes_slots(const T* __restrict__ x, const int* c, const float* ww, int n, int d,
+                                            int feat, int j0, int step, int w, float* acc) {
+  int j = j0;
+  for (; j + (kUnroll - 1) * step < w; j += kUnroll * step) {
+    int col[kUnroll];
+    float wv[kUnroll], v[kUnroll][V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) acc[k] = 0.f;
-  for (int j = 0; j < w; ++j) {
+    for (int u = 0; u < kUnroll; ++u) {
+      col[u] = c[j + u * step];
+      wv[u] = ww ? ww[j + u * step] : 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (is_real(col[u], n)) Vec<T, V>::load(x + static_cast<long long>(col[u]) * d + feat, v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (is_real(col[u], n)) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += wv[u] * v[u][k];
+      }
+  }
+  for (; j < w; j += step) {
     const int col = c[j];
     if (is_real(col, n)) {
       const float wv = ww ? ww[j] : 1.f;
@@ -182,7 +208,53 @@ __device__ __forceinline__ void lanes_row(const T* __restrict__ x, const int* c,
       for (int k = 0; k < V; ++k) acc[k] += wv * v[k];
     }
   }
+}
+
+// D >= 16: V features of one row into `dst`
+template <typename T, int V>
+__device__ __forceinline__ void lanes_row(const T* __restrict__ x, const int* c, const float* ww, int n, int d,
+                                          int feat, int w, T* dst) {
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  lanes_slots<T, V>(x, c, ww, n, d, feat, 0, 1, w, acc);
   Vec<T, V>::store(dst, acc);
+}
+
+// D >= 16, a hub row: the whole block computes the row into `dst`.  Groups of
+// per_row = d / V threads stride the slots; part (kThreads * V floats, shared)
+// holds the groups' partial sums, feature-major, and group 0 adds them in
+// group order.  Where two groups do not fit, the threads loop over the
+// features as lanes_row does.  Every thread of the block must call it.
+template <typename T, int V>
+__device__ __forceinline__ void lanes_hub_row(const T* __restrict__ x, const int* c, const float* ww, int n, int d,
+                                              int w, T* dst, float* part) {
+  const int per_row = d / V;
+  const int groups = kThreads / per_row;
+  if (groups < 2) {
+    for (int f = threadIdx.x; f < per_row; f += kThreads) lanes_row<T, V>(x, c, ww, n, d, f * V, w, dst + f * V);
+    return;
+  }
+  const int g = threadIdx.x / per_row, f = threadIdx.x % per_row;
+  if (g < groups) {
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    lanes_slots<T, V>(x, c, ww, n, d, f * V, g, groups, w, acc);
+#pragma unroll
+    for (int k = 0; k < V; ++k) part[k * kThreads + threadIdx.x] = acc[k];
+  }
+  __syncthreads();
+  if (g == 0) {
+    float s[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      s[k] = part[k * kThreads + f];
+      for (int q = 1; q < groups; ++q) s[k] += part[k * kThreads + q * per_row + f];
+    }
+    Vec<T, V>::store(dst + f * V, s);
+  }
+  __syncthreads();  // part is free again
 }
 
 // ---- one bucket, D < 16: a group of g lanes (g a power of two, g <= 32) per output element ----
@@ -232,15 +304,26 @@ __global__ void ell_lanes_d(const T* __restrict__ x, const int* __restrict__ col
   lanes_row<T, V>(x, cols + row * w, wts ? wts + row * w : nullptr, n, d, feat, w, out + row * d + feat);
 }
 
+// ---- one bucket, D >= 16, hub rows: one block per row ----
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) ell_lanes_hub(const T* __restrict__ x, const int* __restrict__ cols,
+                                                          const float* __restrict__ wts, T* __restrict__ out, int n,
+                                                          int d, int w) {
+  __shared__ float part[kThreads * V];
+  const long long row = blockIdx.x;
+  lanes_hub_row<T, V>(x, cols + row * w, wts ? wts + row * w : nullptr, n, d, w, out + row * d, part);
+}
+
 // ---- the whole reduce in one launch: block i < n_items runs work item i ----
 // items: (n_items, 4) int64 = first row (into rows), row count, width, slot
 // offset (into cols/wts); the blocks after them zero the rows in zero_rows.
-template <typename T, int V>
+// kLanesD picks the regime (D >= kSmallD) at compile time, so each instance
+// holds one regime's code and is given registers for it alone.
+template <typename T, int V, bool kLanesD>
 __global__ void __launch_bounds__(kThreads) segment_fused(
     const T* __restrict__ x, const int* __restrict__ cols, const float* __restrict__ wts,
     const int* __restrict__ rows, const long long* __restrict__ items, const int* __restrict__ zero_rows,
     T* __restrict__ out, int n, int d, int n_items, long long n_zero) {
-  __shared__ float part[kThreads / 32];
   if (static_cast<int>(blockIdx.x) >= n_items) {
     const long long e = static_cast<long long>(blockIdx.x - n_items) * kThreads + threadIdx.x;
     if (e < n_zero * d) out[static_cast<long long>(zero_rows[e / d]) * d + e % d] = from_float<T>(0.f);
@@ -251,47 +334,60 @@ __global__ void __launch_bounds__(kThreads) segment_fused(
   const int nrows = static_cast<int>(item[1]), w = static_cast<int>(item[2]);
   const int* c0 = cols + slot0;
   const float* w0 = wts ? wts + slot0 : nullptr;
-  if (d < kSmallD && w >= kBlockRowW) {  // hub rows: the block sums each element
-    for (int r = 0; r < nrows; ++r) {
-      const int v = rows[row0 + r];
-      for (int feat = 0; feat < d; ++feat) {
-        const float s = block_row(x, c0 + static_cast<long long>(r) * w, w0 ? w0 + static_cast<long long>(r) * w : nullptr,
-                                  n, d, feat, w, part);
-        if (threadIdx.x == 0 && is_real(v, n)) out[static_cast<long long>(v) * d + feat] = from_float<T>(s);
+  if constexpr (!kLanesD) {
+    if (w >= kBlockRowW) {  // hub rows: the block sums each element
+      __shared__ float part[kThreads / 32];
+      for (int r = 0; r < nrows; ++r) {
+        const int v = rows[row0 + r];
+        for (int feat = 0; feat < d; ++feat) {
+          const float s = block_row(x, c0 + static_cast<long long>(r) * w,
+                                    w0 ? w0 + static_cast<long long>(r) * w : nullptr, n, d, feat, w, part);
+          if (threadIdx.x == 0 && is_real(v, n)) out[static_cast<long long>(v) * d + feat] = from_float<T>(s);
+        }
+      }
+    } else {  // groups of g lanes, kThreads / g elements a pass
+      int g = 1;
+      while (g < w && g < 32) g <<= 1;
+      const long long tasks = static_cast<long long>(nrows) * d;
+      const int lane = threadIdx.x % g;
+      for (long long base = 0; base < tasks; base += kThreads / g) {
+        const long long task = base + threadIdx.x / g;
+        const bool live = task < tasks;
+        float acc = 0.f;
+        long long row = 0;
+        int feat = 0;
+        if (live) {
+          row = task / d;
+          feat = static_cast<int>(task % d);
+          acc = group_slots(x, c0 + row * w, w0 ? w0 + row * w : nullptr, n, d, feat, w, lane, g);
+        }
+        for (int off = g >> 1; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, g);
+        if (live && lane == 0) {
+          const int v = rows[row0 + row];
+          if (is_real(v, n)) out[static_cast<long long>(v) * d + feat] = from_float<T>(acc);
+        }
       }
     }
-  } else if (d < kSmallD) {  // groups of g lanes, kThreads / g elements a pass
-    int g = 1;
-    while (g < w && g < 32) g <<= 1;
-    const long long tasks = static_cast<long long>(nrows) * d;
-    const int lane = threadIdx.x % g;
-    for (long long base = 0; base < tasks; base += kThreads / g) {
-      const long long task = base + threadIdx.x / g;
-      const bool live = task < tasks;
-      float acc = 0.f;
-      long long row = 0;
-      int feat = 0;
-      if (live) {
-        row = task / d;
-        feat = static_cast<int>(task % d);
-        acc = group_slots(x, c0 + row * w, w0 ? w0 + row * w : nullptr, n, d, feat, w, lane, g);
+  } else {
+    if (w >= kBlockRowW) {  // hub rows: the block splits each row's slots
+      __shared__ float hub[kThreads * V];
+      for (int r = 0; r < nrows; ++r) {
+        const int v = rows[row0 + r];
+        if (!is_real(v, n)) continue;  // the same for every thread of the block
+        lanes_hub_row<T, V>(x, c0 + static_cast<long long>(r) * w, w0 ? w0 + static_cast<long long>(r) * w : nullptr,
+                            n, d, w, out + static_cast<long long>(v) * d, hub);
       }
-      for (int off = g >> 1; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, g);
-      if (live && lane == 0) {
+    } else {  // lanes along D
+      const int per_row = d / V;
+      const long long tasks = static_cast<long long>(nrows) * per_row;
+      for (long long t = threadIdx.x; t < tasks; t += kThreads) {
+        const long long row = t / per_row;
         const int v = rows[row0 + row];
-        if (is_real(v, n)) out[static_cast<long long>(v) * d + feat] = from_float<T>(acc);
+        if (!is_real(v, n)) continue;
+        const int feat = static_cast<int>(t % per_row) * V;
+        lanes_row<T, V>(x, c0 + row * w, w0 ? w0 + row * w : nullptr, n, d, feat, w,
+                        out + static_cast<long long>(v) * d + feat);
       }
-    }
-  } else {  // lanes along D
-    const int per_row = d / V;
-    const long long tasks = static_cast<long long>(nrows) * per_row;
-    for (long long t = threadIdx.x; t < tasks; t += kThreads) {
-      const long long row = t / per_row;
-      const int v = rows[row0 + row];
-      if (!is_real(v, n)) continue;
-      const int feat = static_cast<int>(t % per_row) * V;
-      lanes_row<T, V>(x, c0 + row * w, w0 ? w0 + row * w : nullptr, n, d, feat, w,
-                      out + static_cast<long long>(v) * d + feat);
     }
   }
 }
@@ -317,8 +413,13 @@ int launch(const T* x, const int* cols, const float* wts, T* out, int n, int d, 
                                                                        w, g);
     }
   } else if (d % VMAX == 0 && aligned16(x) && aligned16(out)) {
-    ell_lanes_d<T, VMAX><<<blocks_for(r * (d / VMAX)), kThreads, 0, stream>>>(x, cols, wts, out, n,
-                                                                             d, r, w);
+    if (w >= kBlockRowW)
+      ell_lanes_hub<T, VMAX><<<static_cast<unsigned>(r), kThreads, 0, stream>>>(x, cols, wts, out, n, d, w);
+    else
+      ell_lanes_d<T, VMAX><<<blocks_for(r * (d / VMAX)), kThreads, 0, stream>>>(x, cols, wts, out, n,
+                                                                               d, r, w);
+  } else if (w >= kBlockRowW) {
+    ell_lanes_hub<T, 1><<<static_cast<unsigned>(r), kThreads, 0, stream>>>(x, cols, wts, out, n, d, w);
   } else {
     ell_lanes_d<T, 1><<<blocks_for(r * d), kThreads, 0, stream>>>(x, cols, wts, out, n, d, r, w);
   }
@@ -329,12 +430,15 @@ template <typename T, int VMAX>
 int launch_fused(const T* x, const int* cols, const float* wts, const int* rows, const long long* items,
                  const int* zero_rows, T* out, int n, int d, int n_items, long long n_zero, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>(n_items) + blocks_for(n_zero * d);
-  if (d >= kSmallD && d % VMAX == 0 && aligned16(x) && aligned16(out))
-    segment_fused<T, VMAX><<<blocks, kThreads, 0, stream>>>(x, cols, wts, rows, items, zero_rows, out, n, d,
-                                                            n_items, n_zero);
+  if (d < kSmallD)
+    segment_fused<T, 1, false><<<blocks, kThreads, 0, stream>>>(x, cols, wts, rows, items, zero_rows, out, n, d,
+                                                                n_items, n_zero);
+  else if (d % VMAX == 0 && aligned16(x) && aligned16(out))
+    segment_fused<T, VMAX, true><<<blocks, kThreads, 0, stream>>>(x, cols, wts, rows, items, zero_rows, out, n,
+                                                                  d, n_items, n_zero);
   else
-    segment_fused<T, 1><<<blocks, kThreads, 0, stream>>>(x, cols, wts, rows, items, zero_rows, out, n, d,
-                                                         n_items, n_zero);
+    segment_fused<T, 1, true><<<blocks, kThreads, 0, stream>>>(x, cols, wts, rows, items, zero_rows, out, n, d,
+                                                               n_items, n_zero);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 """State carried across from the JAX package, as plain numpy arrays and dicts.
 
 The paper path's state is graphs, ELL buckets, traces, partitions, traffic
-and placements; the LM path's is the transformer's weights; the recsys path's
-is dcn-v2's weights.  The caller
+and placements; the LM path's is the transformer's weights; the GNN path's is
+the four GNNs' weights; the recsys path's is dcn-v2's weights.  The caller
 converts the other package's objects to numpy arrays and plain values (this
 module imports nothing of it) and these functions build the port's own
 objects from them, so that both packages can be made to compute on the same
@@ -20,11 +20,12 @@ from repro_torch.core.traffic import TrafficMatrix
 from repro_torch.device import resolve_device
 from repro_torch.graph.structs import EllBlocks, HostGraph
 from repro_torch.graph.vertex_program import TraceResult
+from repro_torch.models.gnn import GnnConfig, param_shapes
 from repro_torch.models.recsys import DcnConfig
 from repro_torch.models.transformer import TransformerConfig, layer_shapes
 
 __all__ = ["host_graph", "ell_blocks", "trace_result", "partition", "traffic_matrix", "placement",
-           "transformer_params", "recsys_params"]
+           "transformer_params", "gnn_params", "recsys_params"]
 
 
 def host_graph(num_nodes, src, dst, weight=None, name: str = "graph") -> HostGraph:
@@ -115,6 +116,35 @@ def transformer_params(tree: dict, cfg: TransformerConfig, device: str | torch.d
     return out
 
 
+def _tree_to(node, shape, name: str, make):
+    """`node` (nested dicts and lists of arrays) checked against `shape` (the
+    same nesting with shape tuples at the leaves), each leaf passed through
+    `make(array, name)`.  Raises on a missing, extra or misshapen leaf."""
+    if isinstance(shape, dict):
+        if not isinstance(node, dict) or set(node) != set(shape):
+            raise ValueError(f"{name}: keys {sorted(node) if isinstance(node, dict) else node!r}, "
+                             f"want {sorted(shape)}")
+        return {k: _tree_to(node[k], s, f"{name}/{k}", make) for k, s in shape.items()}
+    if isinstance(shape, list):
+        if not isinstance(node, (list, tuple)) or len(node) != len(shape):
+            raise ValueError(f"{name}: want a list of {len(shape)}")
+        return [_tree_to(n, s, f"{name}/{i}", make) for i, (n, s) in enumerate(zip(node, shape))]
+    a = np.array(node, dtype=np.float32)  # a writable copy
+    if a.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {a.shape}, want {tuple(shape)}")
+    return make(a, name)
+
+
+def gnn_params(tree: dict, cfg: GnnConfig, device: str | torch.device | None = None) -> dict:
+    """The JAX package's GNN params (`repro.models.gnn.init_params`), given as
+    nested dicts and lists of numpy arrays, as the port's params on `device`:
+    the layout of `models.gnn.param_shapes(cfg)` (GIN's `eps` a 0-d tensor),
+    in `cfg.param_dtype`.  Raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    return _tree_to(tree, param_shapes(cfg), cfg.name,
+                    lambda a, _: torch.from_numpy(a).to(device=dev, dtype=cfg.param_dtype))
+
+
 def recsys_params(tree: dict, cfg: DcnConfig, device: str | torch.device | None = None) -> dict:
     """The JAX package's dcn-v2 params (`repro.models.recsys.init_params`),
     given as nested dicts and lists of numpy arrays, as the port's params on
@@ -133,20 +163,8 @@ def recsys_params(tree: dict, cfg: DcnConfig, device: str | torch.device | None 
         "out": {"w": (cfg.mlp_dims[-1], 1), "b": (1,)},
     }
 
-    def to(node, shape, name):
-        if isinstance(shape, dict):
-            if not isinstance(node, dict) or set(node) != set(shape):
-                raise ValueError(f"{name}: keys {sorted(node) if isinstance(node, dict) else node!r}, "
-                                 f"want {sorted(shape)}")
-            return {k: to(node[k], s, f"{name}/{k}") for k, s in shape.items()}
-        if isinstance(shape, list):
-            if not isinstance(node, (list, tuple)) or len(node) != len(shape):
-                raise ValueError(f"{name}: want a list of {len(shape)}")
-            return [to(n, s, f"{name}/{i}") for i, (n, s) in enumerate(zip(node, shape))]
-        a = np.array(node, dtype=np.float32)  # a writable copy
-        if a.shape != shape:
-            raise ValueError(f"{name}: shape {a.shape}, want {shape}")
+    def make(a, name):
         dtype = torch.float32 if name.endswith("/b") else cfg.param_dtype
         return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
-    return to(tree, want, cfg.name)
+    return _tree_to(tree, want, cfg.name, make)

@@ -9,9 +9,10 @@ device through pinned memory without blocking.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --batch 65536 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke --device cpu --steps 3
 
-The recsys family (dcn-v2) trains.  The LM family raises: its attention
-kernel has no backward yet (ROADMAP.md Queue B 4; LM training is Queue A 8);
-the GNN archs are not ported (`configs.registry.PENDING`).
+The recsys family (dcn-v2) trains.  The LM and GNN families raise: the
+attention kernel and the ELL reduce that GIN's sum goes through have no
+backward yet (ROADMAP.md Queue B 4; LM and GNN training are Queue A 8).  The
+GNN models themselves are ported (`models/gnn.py`) and run forward on the card.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ __all__ = ["train", "main"]
 _NOT_PORTED = {
     "lm": "LM training is not ported: the flash-attention kernel has no backward "
           "(ROADMAP.md Queue B 4; LM training is Queue A 8)",
-    "gnn": "GNN training is not ported (ROADMAP.md Queue A 8, models/gnn.py)",
+    "gnn": "GNN training is not ported: the ELL reduce of GIN's sum (segment_spmm) has no backward "
+           "(ROADMAP.md Queue B 4; GNN training is Queue A 8)",
 }
 
 

@@ -17,7 +17,7 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
-from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref
+from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref, segment_spmm_ref
 
 TOL = dict(rtol=2e-3, atol=2e-5)  # fp32 accumulation in another order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of an fp32 sum
@@ -136,6 +136,53 @@ def test_fused_reduce_equals_the_per_bucket_route(d, dtype, weighted):
     want = coo_spmm_ref(x, torch.from_numpy(g.src).cuda(), torch.from_numpy(g.dst).cuda(),
                         None if g.weight is None else torch.from_numpy(g.weight).cuda(), g.num_nodes)
     torch.testing.assert_close(got.float(), want.float(), **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 100, 1433])
+def test_fused_reduce_matches_the_plain_version_at_gin_widths(d, dtype):
+    """GIN's widths (d_hidden 64, ogb_products' 100, full_graph_sm's 1,433)
+    on a graph with a hub row of width 2,048: the block splits the hub row's
+    slots when d / V threads leave room for two groups (64, 100), and loops
+    over the features when they do not (1,433: V = 1)."""
+    _need_card()
+    g = _hub_graph(False)
+    ell = build_ell(g.reversed())
+    assert max(ell.widths) >= 1024
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((g.num_nodes, d)).astype(np.float32)).cuda()
+    x = x.to(dtype)
+    got = segment_spmm(x, ell)
+    assert torch.equal(got, segment_spmm(x, ell)) and torch.equal(got, _per_bucket(x, ell))
+    want = segment_spmm_ref(x, ell)
+    torch.testing.assert_close(got.float(), want.float(), **(TOL if dtype == torch.float32 else BF16_TOL))
+    torch.testing.assert_close(got[7].float(), want[7].float(),  # the hub row
+                               **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_gin_forward_with_grad_on_the_card_raises():
+    """The ELL reduce has no backward: a GIN forward whose activations
+    require grad raises on the card, and runs under no_grad."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import GraphBatcher, to_device
+    from repro_torch.models import gnn
+
+    _need_card()
+    cfg = get_arch("gin-tu").smoke_config()
+    batch = GraphBatcher(rmat(64, 400, seed=0), d_feat=cfg.d_in, n_classes=cfg.d_out).full_batch()
+    batch = to_device(batch, "cuda")
+    batch["ell"] = gnn.batch_ell(batch, device="cuda")
+    params = gnn.init_params(cfg, 0, device="cuda")
+    for p in (params["layers"][0]["mlp"]["w0"], params["layers"][0]["eps"]):
+        p.requires_grad_(True)
+    before = segment_spmm.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gnn.forward(params, batch, cfg)
+    with torch.no_grad():
+        out = gnn.forward(params, batch, cfg)
+    assert out.shape == (64, cfg.d_out) and bool(torch.isfinite(out).all())
+    assert segment_spmm.launches - before == 1 + cfg.n_layers  # layer 1's launch, then a full forward
 
 
 @pytest.mark.gpu

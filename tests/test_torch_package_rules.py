@@ -13,7 +13,8 @@ import repro_torch
 from repro_torch.device import probe, resolve_backend, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -45,7 +46,11 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/nocsim/batch.py", "src/repro_torch/nocsim/credit.py",
                  "src/repro_torch/faults/degraded.py", "src/repro_torch/obs/recorder.py",
                  "src/repro_torch/experiments/journal.py", "src/repro_torch/experiments/resilience.py",
-                 "src/repro_torch/experiments/run.py", "src/repro_torch/experiments/report.py"):
+                 "src/repro_torch/experiments/run.py", "src/repro_torch/experiments/report.py",
+                 "src/repro_torch/models/gnn.py", "src/repro_torch/graph/sampler.py",
+                 "src/repro_torch/configs/gin_tu.py", "src/repro_torch/configs/gat_cora.py",
+                 "src/repro_torch/configs/pna.py", "src/repro_torch/configs/graphcast.py",
+                 "tools/gnn_full_scale.py", "tools/gnn_reduce_hub.py"):
         assert must in names
     for cu in ("ell_spmm.cu", "flash_attention.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
@@ -133,6 +138,8 @@ def test_entry_points_default_to_the_card():
     from repro_torch.nocsim import NocSimParams, build_credit_program, contended_batch, run_credit
     from repro_torch.nocsim.batch import _open_step_torch, open_step
     from repro_torch.nocsim.model import build_schedule, simulate_contended
+    from repro_torch.data.pipeline import GraphBatcher
+    from repro_torch.models import gnn
     import numpy as np
 
     g = rmat(64, 256, seed=0)
@@ -170,10 +177,28 @@ def test_entry_points_default_to_the_card():
         lambda: run_resilience(GRIDS["minifaults"], backend="numpy"),
         lambda: run_main(["--grid", "mini", "-q"]),
         lambda: run_main(["--grid", "minifaults", "--backend", "numpy", "-q"]),
+        lambda: gnn.init_params(get_arch("gin-tu").smoke_config()),
+        lambda: gnn.batch_ell(GraphBatcher(g, d_feat=4, n_classes=2).full_batch()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_gnn_training_waits_for_the_reduce_backward():
+    """The GNN archs are ported (none is pending); their training raises,
+    naming the backward of the ELL reduce (ROADMAP.md Queue B 4)."""
+    from repro_torch.configs.registry import PENDING, arch_ids
+    from repro_torch.launch.train import main, train
+
+    assert sorted(arch_ids("gnn")) == ["gat-cora", "gin-tu", "graphcast", "pna"]
+    assert not {"gin-tu", "gat-cora", "pna", "graphcast"} & set(PENDING)
+    assert set(PENDING) == {"qwen2-moe-a2.7b", "olmoe-1b-7b"}
+    for arch in arch_ids("gnn"):
+        with pytest.raises(NotImplementedError, match="no backward.*Queue B 4"):
+            train(arch, smoke=True, steps=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="segment_spmm.*Queue B 4"):
+        main(["--arch", "gin-tu", "--smoke", "--device", "cpu", "--steps", "1"])
 
 
 def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
