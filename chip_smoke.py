@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four paths, each driven with its kernel's launch count set to 0 just before
+Five paths, each driven with its kernels' launch counts set to 0 just before
 and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -36,7 +36,18 @@ and read just after (the paper pipeline once more through its CLI):
   graphs of 30 nodes), and gin-tu on the amazon graph above at the
   `ogb_products` feature width (100), through `models.gnn.forward` and
   `loss_fn` under `inference_mode`; its kernel is `segment_spmm` (GIN's
-  neighbour sum, once a layer, at D = d_in and then 64);
+  neighbour sum, once a layer, at D = d_in and then 64); gin-tu on amazon
+  also trains (6 AdamW steps), its gradient through the same kernel over the
+  transposed ELL;
+* training: `launch.train.train`, the code path of `python -m
+  repro_torch.launch.train`: llama3.2-3b at its published width and depth
+  (3,606,752,256 float32 params, bf16 activations, a recompute a layer) for
+  20 steps at the reference's defaults (batch 8, seq 128, lr 1e-3, AdamW,
+  clip 1.0), then gin-tu, gat-cora and pna at `full_graph_sm`'s widths on
+  the reference launcher's graph (R-MAT, 512 nodes, 4,096 edges) for 20
+  steps each, and graphcast refused; its kernels are `flash_attention` (twice
+  a layer a step: forward and recompute), `flash_attention_bwd` (once a
+  layer a step) and `segment_spmm` (gin-tu: 5 forward and 4 backward a step);
 * recsys: dcn-v2 at its published configuration (26 tables × 1,000,000 × 16,
   cross 3 × 429², MLP 1024-1024-512: 418,569,930 float32 params from a seeded
   generator on the card) — the `RECSYS_SHAPES` cells `serve_p99` (batch 512),
@@ -74,7 +85,10 @@ Phases, one JSON line each:
              100: host batch and `build_ell` seconds, forward wall and device
              time by kernel, busy share, and one reduce at D = 100 and 64 beside
              its bound, `torch.sparse.mm`, the scatter route, the plain version
-             and the same launch without its hub rows
+             and the same launch without its hub rows; then its training: the
+             ELL and its transpose on the host, gradients against the scatter
+             route's, 9 reduces a step, step ms, and the transposed reduce at
+             D = 64 beside its bound and `torch.sparse.mm`
   cli        the sweep CLI: backpressure, faults (then resumed: byte-identical,
              no trace) and paper, each with a cold cache of its own; wall time
              and stage split a grid, one `segment_spmm` launch a PageRank
@@ -84,8 +98,24 @@ Phases, one JSON line each:
              and bf16, and the serve path's shapes; two runs bit-equal), its
              time and TFLOP/s at every path shape beside the operation bound
              and `scaled_dot_product_attention` (call and CUDA-graph
-             replay), and the bf16 kernel's registers and shared memory
+             replay), and the bf16 kernel's registers and shared memory;
+             the forward's output and log-sum-exp against the plain
+             forward's, and `flash_attention_bwd` on the kernel's forward
+             against `flash_attention_bwd_ref` on the plain forward (test
+             shapes, f32 and bf16, offsets, rows that see no key, the
+             training and serve shapes; two runs bit-equal) and its time at
+             the training and serve shapes beside its bound, the plain
+             version and SDPA's backward
   serve      the serve path, its throughput, and full-width logit checks
+  train      the training path: llama3.2-3b's losses (finite, the last below
+             the first), step ms of the last 10, tokens/s, peak memory, one
+             step's device time by kernel (GEMMs, attention forward and
+             backward, the rest) and busy share, the optimizer alone, 56 + 28
+             attention launches a step; gin-tu/gat-cora/pna losses, step ms,
+             9 reduces a gin-tu step; on gin-tu's training batch, one step's
+             gradients through the ELL against the scatter route's and the
+             transposed reduce against its plain version and the scatter
+             route's gradient; graphcast refused
   embedding_bag  `embedding_bag` against its plain version (test shapes, f32
              and bf16, weighted or not; autograd gradients of tables and
              weights; dcn-v2's lookup at batch 65,536 and a weighted
@@ -99,7 +129,8 @@ Phases, one JSON line each:
 
 Every line carries `seconds`, the time since the line before it.
 
-then the contract lines: one `{"kernels": [...]}` object, the card's name and
+then the contract lines: one `{"kernels": [...]}` object (ell_spmm,
+flash_attention, flash_attention_bwd, embedding_bag), the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
@@ -111,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -145,6 +177,26 @@ ATTN_PATH_S = (512, 2048, 3072)
 ATTN_TIMED_S = 2048
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
+# the attention backward: (B, Sq, Skv, Hq, Hkv, dh) at G = 1, 3, 3, 4, 3, every head dim,
+# ragged lengths, each causal (q_offset = Skv - Sq) and not; then q_offset -40 (40
+# rows see no key) and 37; timed at llama3.2-3b's training shape (launch.train's
+# batch 8, seq 128) and at the serve path's S
+ATTN_BWD_TEST_SHAPES = [(2, 128, 128, 4, 4, 64), (1, 96, 160, 6, 2, 32), (2, 77, 77, 24, 8, 128),
+                        (1, 200, 328, 8, 2, 128), (2, 100, 90, 6, 2, 64)]
+ATTN_BWD_OFFSETS = (-40, 37)
+ATTN_TRAIN_SHAPE = (8, 128, 24, 8, 128)  # (B, S, Hq, Hkv, dh)
+# each gradient within this share of its largest magnitude: float32 sums in
+# another order; in bf16 the kernel and the plain version each round one fp32 value
+BWD_REL = {"f32": 1e-5, "bf16": 1e-2}
+# the forward's log-sum-exp (natural log, float32 in both dtypes: fp32 scores
+# summed in another order; the bf16 kernel's exponentials are exp2 of scores
+# scaled into log2 units) of each row that sees a key, as the `-m gpu` tests
+# hold it; a row that sees none holds a sentinel at or below LSE_NO_KEY in both
+# (its output is not compared: the plain version and the kernel average
+# different masked tiles there, and the backward gives such a row nothing)
+LSE_TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=1e-4, atol=1e-2)}
+LSE_NO_KEY = -1e29
+FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 
 # embedding bag: tests/test_kernels.py:84-86 (T, V, D, B, L); the path's
 # lookup is dcn-v2's, single-hot at the train_batch cell's 65,536, and a
@@ -217,7 +269,8 @@ GNN_CUTS = [
     "with random edges and features, as tests/test_arch_smoke.py makes them; no icosahedral geometry",
     "gin-tu at ogb_products' width (d_in 100) runs on amazon (304,000 nodes, 4,300,000 edges), the graph the "
     "other phases hold; ogb_products' own size is tools/gnn_full_scale.py",
-    "forward and loss only: GNN training waits for the ELL reduce's backward (ROADMAP.md Queue B 4)",
+    "gin-tu trains on amazon for 6 steps here; the 20-step training of gin-tu, gat-cora and pna is the "
+    "train phase, on the reference launcher's graph (R-MAT, 512 nodes, 4,096 edges)",
     "minibatch_lg (fanout-sampled batches) is not driven on the card",
 ]
 
@@ -1007,6 +1060,8 @@ def gin_at_scale(device: torch.device, graph, timer: Timer, *, seed: int, full_s
             r["plain_ms"] = timer.call_ms(lambda: segment_spmm_ref(x, ell), calls=1, reps=3)
             torch.cuda.empty_cache()
             reduces[f"D{d}"] = r
+    training, train_launches = gin_training_at_scale(device, graph, host, batch, params, cfg, timer, seed=seed)
+    launches += train_launches
     hub = work.items[:, 2] >= ELL_HUB_WIDTH
     out = {
         "arch": GNN_ARCH, "cell_widths": GNN_WIDE_CELL, "params": cfg.num_params, "nodes": n,
@@ -1017,9 +1072,153 @@ def gin_at_scale(device: torch.device, graph, timer: Timer, *, seed: int, full_s
                 "vertices_in_no_bucket": int(work.zero_rows.numel())},
         "forward_wall_ms": forward_wall_ms, "forward_profile": prof,
         "scatter_forward_wall_ms": scatter_wall_ms, "ell_vs_scatter_max_abs_err": err,
-        "reduce": reduces,
+        "reduce": reduces, "train": training,
     }
     return out, launches
+
+
+def gin_grads_vs_scatter(params, batch: dict, cfg, where: str) -> tuple[float, int]:
+    """One step's gradients of every leaf on the ELL route (the forward
+    reduce and its transpose through the fused kernel) against the scatter
+    route's (`index_add_` and its autograd) on the same weights and batch,
+    within GNN_TOL.  Returns the largest difference and the step's
+    `segment_spmm` launches (checked: 5 forward, 4 backward)."""
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.models import gnn
+    from repro_torch.train.pytree import tree_leaves
+
+    scatter = dataclasses.replace(cfg, reduce_impl="scatter")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    before = segment_spmm.launches
+    got = torch.autograd.grad(gnn.loss_fn(params, batch, cfg), leaves)
+    torch.cuda.synchronize()
+    launches = segment_spmm.launches - before
+    check(launches == 2 * cfg.n_layers - 1, f"gin training step on {where}: {launches} reduces, want 5 + 4")
+    want = torch.autograd.grad(gnn.loss_fn(params, batch, scatter), leaves)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(all(torch.allclose(a, b, **GNN_TOL) for a, b in zip(got, want)),
+          f"gin gradients on {where}, ell vs scatter: {err}")
+    for p in leaves:
+        p.requires_grad_(False)
+    return err, launches
+
+
+def gin_training_held(device: torch.device, seed: int) -> dict:
+    """gin-tu on the batch `launch.train` trains it on (its own `_gnn_setup`:
+    R-MAT 512/4,096, full_graph_sm widths, the ELL and its transpose):
+    one step's gradients on the ELL route against the scatter route's, and
+    the transposed reduce at D = d_hidden against its plain version and the
+    scatter route's reduce gradient (autograd of `index_add_` over the same
+    edges), on N(0, 1) rows."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+    from repro_torch.launch.train import _gnn_setup
+    from repro_torch.models import gnn
+
+    cfg, params, _, batches = _gnn_setup(get_arch(GNN_ARCH), smoke=False, seed=seed, device=device)
+    batch = next(batches)
+    check(batch["ell"].transpose is not None, "launch.train's gin-tu batch carries no transposed ELL")
+    grad_err, launches = gin_grads_vs_scatter(params, batch, cfg, "launch.train's graph")
+
+    n = batch["x"].shape[0]
+    g = torch.from_numpy(np.random.default_rng(seed + 5).standard_normal((n, cfg.d_hidden)).astype(np.float32))
+    g = g.to(device)
+    h = torch.zeros_like(g, requires_grad=True)
+    scatter = dataclasses.replace(cfg, reduce_impl="scatter")
+    by_scatter = torch.autograd.grad(gnn.gin_sum(h, batch, scatter), h, g)[0]
+    with torch.inference_mode():
+        red = segment_spmm(g, batch["ell"].transpose)
+        plain = segment_spmm_ref(g, batch["ell"].transpose)
+    torch.cuda.synchronize()
+    plain_err = float((red - plain).abs().max())
+    check(torch.allclose(red, plain, **F32_TOL), f"transposed reduce on launch.train's graph vs plain: {plain_err}")
+    scatter_err = float((red - by_scatter).abs().max())
+    check(torch.allclose(red, by_scatter, **F32_TOL),
+          f"transposed reduce on launch.train's graph vs the scatter route's gradient: {scatter_err}")
+    del params, batch
+    return {"grads_ell_vs_scatter_max_abs_err": grad_err, "segment_spmm_launches_a_step": launches,
+            "transpose_reduce": {"D": cfg.d_hidden, "max_abs_err_vs_plain": plain_err,
+                                 "max_abs_err_vs_scatter_gradient": scatter_err},
+            "tolerance_grads": GNN_TOL, "tolerance_reduce": F32_TOL}
+
+
+def gin_training_at_scale(device, graph, host, batch, params, cfg, timer: Timer, *, seed: int) -> tuple[dict, int]:
+    """gin-tu training on the large graph: the ELL with its transpose built
+    on the host (time), one step's gradients on the ELL route against the
+    scatter route's on the same weights, the step's `segment_spmm` launches (5
+    forward, 4 backward), the step time of `make_train_step` with AdamW, and
+    one transposed reduce at D = 64 beside its bound and `torch.sparse.mm` of
+    the transposed adjacency.  Returns the numbers and the launches."""
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+    from repro_torch.models import gnn
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+
+    t0 = time.perf_counter()
+    ell = gnn.batch_ell(host, device=device, transpose=True)
+    torch.cuda.synchronize()
+    build_both_s = time.perf_counter() - t0
+    tb = {**batch, "ell": ell}
+    start = segment_spmm.launches
+    grad_err, launches_a_step = gin_grads_vs_scatter(params, tb, cfg, "the large graph")
+
+    init, step = make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg), adamw(cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)))
+    st = init(params)
+    losses, walls = [], []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, tb)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        if i:  # the first is warm-up
+            walls.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"gin training on the large graph: losses {losses}")
+    del st
+    train_launches = segment_spmm.launches - start  # the gradient check's step and the 6 steps
+    check(train_launches == 7 * launches_a_step, f"gin training on the large graph: {train_launches} reduces")
+
+    n = graph.num_nodes
+    ell_t = ell.transpose
+    idx = torch.from_numpy(np.stack([graph.src, graph.dst]).astype(np.int64)).to(device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Sparse")
+        a_t = torch.sparse_coo_tensor(idx, torch.ones(graph.num_edges, device=device), (n, n)).coalesce()
+        a_t = a_t.to_sparse_csr()
+    del idx
+    x = torch.from_numpy(np.random.default_rng(seed + 3).standard_normal((n, cfg.d_hidden)).astype(np.float32))
+    x = x.to(device)
+    with torch.inference_mode():
+        red = segment_spmm(x, ell_t)
+        lib = torch.sparse.mm(a_t, x)
+        torch.cuda.synchronize()
+        red_err = float((red - lib).abs().max())
+        check(torch.allclose(red, lib, **GIN_REDUCE_TOL), f"transposed reduce vs torch.sparse.mm: {red_err}")
+        want = segment_spmm_ref(x, ell_t)
+        plain_err = float((red - want).abs().max())
+        check(torch.allclose(red, want, **GIN_REDUCE_TOL), f"transposed reduce vs its plain version: {plain_err}")
+        del want
+        work_t = ell_t.work()
+        transpose = {
+            "D": cfg.d_hidden, "ms": timer.device_ms(lambda: segment_spmm(x, ell_t), calls=10),
+            "call_ms": timer.call_ms(lambda: segment_spmm(x, ell_t), calls=10),
+            "bound_ms": gin_reduce_bound_ms(x, ell_t), "bound_by": "bytes",
+            "library_ms": timer.call_ms(lambda: torch.sparse.mm(a_t, x), calls=10),
+            "library_device_ms": timer.device_ms(lambda: torch.sparse.mm(a_t, x), calls=10),
+            "max_abs_err_vs_library": red_err, "max_abs_err_vs_plain": plain_err,
+            "plain_ms": timer.call_ms(lambda: segment_spmm_ref(x, ell_t), calls=1, reps=3),
+            "ell_t": {"work_items": int(work_t.items.shape[0]), "max_width": int(work_t.items[:, 2].max()),
+                      "vertices_in_no_bucket": int(work_t.zero_rows.numel())},
+        }
+    del red, lib, a_t, x
+    torch.cuda.empty_cache()
+    return {"build_ell_and_transpose_host_s": build_both_s, "segment_spmm_launches_a_step": launches_a_step,
+            "grads_ell_vs_scatter_max_abs_err": grad_err, "losses": losses,
+            "step_ms_median": float(np.median(walls)), "step_ms": walls, "transpose_reduce": transpose,
+            "timing": "step_ms: host clock around one synchronised make_train_step step (AdamW) on the "
+                      "resident batch, 5 after one warm-up; transpose_reduce as reduce.*"}, train_launches
 
 
 def phase_gnn(device: torch.device, graph, seed: int, smi: str | None, timer: Timer) -> tuple[dict, int]:
@@ -1123,6 +1322,140 @@ def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bwd_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
+    """Least time for one backward on these inputs: five products a kept
+    pair where the forward does two (2.5x `attention_flops`) over the
+    tensor-core or CUDA-core rate, against q, k, v, o, dO and lse read once
+    and dQ, dK, dV written once over the memory rate."""
+    flops = 2.5 * attention_flops(q, k, causal, q_offset)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + q.numel() // q.shape[-1] * 4
+    t_ops = flops / (H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
+    """The forward kernel's output and log-sum-exp against the plain
+    forward's, then the backward kernel on the kernel's forward against
+    `flash_attention_bwd_ref` on the plain forward (test shapes, f32 and bf16,
+    causal and not, offsets, rows that see no key; two runs bit-equal; the
+    training and serve shapes), then its time at the training shape and at
+    the serve path's S beside its bound, the plain version and the backward
+    of `scaled_dot_product_attention`."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    fwd = {"o_max_abs_err": 0.0, "lse_max_abs_err": 0.0, "cases": 0}
+
+    def largest_diff(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def case(b, sq, skv, hq, hkv, dh, dtype, causal, off):
+        """Inputs, the kernel's forward (o, lse) held against the plain
+        forward's, and the plain forward (o, lse) for the plain backward."""
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off, with_lse=True)
+        o_ref, lse_ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off, return_lse=True)
+        do = torch.randn(o.shape, generator=gen, device=device).to(dtype)
+        torch.cuda.synchronize()
+        what = (b, sq, skv, hq, hkv, dh, causal, off, str(dtype))
+        check(lse.shape == (b, hq, sq) and lse.dtype == torch.float32, f"lse shape/dtype at {what}")
+        sees = (torch.arange(sq, device=device) + off >= 0) if causal else torch.ones(sq, dtype=torch.bool,
+                                                                                         device=device)
+        no_key = ~sees
+        check(bool((lse[:, :, no_key] <= LSE_NO_KEY).all() and (lse_ref[:, :, no_key] <= LSE_NO_KEY).all()),
+              f"lse of rows that see no key at {what}")
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        lse_err = largest_diff(lse[:, :, sees], lse_ref[:, :, sees])
+        check(torch.allclose(lse[:, :, sees], lse_ref[:, :, sees], **LSE_TOL[tag]),
+              f"forward lse vs plain version at {what}: max abs err {lse_err}")
+        o_seen, o_ref_seen = o[:, sees].float(), o_ref[:, sees].float()
+        o_err = largest_diff(o_seen, o_ref_seen)
+        check(torch.allclose(o_seen, o_ref_seen, **(F32_TOL if tag == "f32" else BF16_TOL)),
+              f"forward o vs plain version at {what}: {o_err}")
+        fwd["o_max_abs_err"] = max(fwd["o_max_abs_err"], o_err)
+        fwd["lse_max_abs_err"] = max(fwd["lse_max_abs_err"], lse_err)
+        fwd["cases"] += 1
+        return q, k, v, o, do, lse, o_ref, lse_ref
+
+    worst = {"f32": 0.0, "bf16": 0.0}
+    max_abs = 0.0
+    cases = 0
+    runs = [(shape, causal, (shape[2] - shape[1]) if causal else 0)
+            for shape in ATTN_BWD_TEST_SHAPES for causal in (True, False)]
+    runs += [(ATTN_BWD_TEST_SHAPES[-1], True, off) for off in ATTN_BWD_OFFSETS]
+    for shape, causal, off in runs:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v, o, do, lse, o_ref, lse_ref = case(*shape, dtype, causal, off)
+            got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+            again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+            want = flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            what = (*shape, causal, off, tag)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)), f"backward: two runs differ at {what}")
+            for a, b in zip(got, want):
+                scale = float(b.float().abs().max()) + 1e-6
+                err = float((a.float() - b.float()).abs().max())
+                check(a.dtype == q.dtype and err <= BWD_REL[tag] * scale,
+                      f"backward vs plain version at {what}: {err} of {scale}")
+                worst[tag] = max(worst[tag], err / scale)
+                max_abs = max(max_abs, err)
+            if off < 0:
+                check(bool((got[0][:, :-off] == 0).all()), "rows that see no key must add no gradient")
+            cases += 1
+
+    timed = {}
+    for name, (b, s, hq, hkv, dh) in (("train", ATTN_TRAIN_SHAPE), ("serve", (1, ATTN_TIMED_S, 24, 8, 128))):
+        q, k, v, o, do, lse, o_ref, lse_ref = case(b, s, s, hq, hkv, dh, torch.bfloat16, True, 0)
+        bound, by = attention_bwd_bound_ms(q, k, True, 0)
+        ms = timer.device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True), calls=5, reps=10)
+        # yardstick, used nowhere in the port: the backward of one library call in its own layout
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+        ours = flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        plain = flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=True)
+        torch.cuda.synchronize()
+        held = []
+        for got, want in zip(ours, plain):  # the kernel at the path's shape, against its plain version
+            scale = float(want.float().abs().max()) + 1e-6
+            held.append(float((got.float() - want.float()).abs().max()) / scale)
+            check(held[-1] <= BWD_REL["bf16"], f"backward vs plain version at the {name} shape: {held[-1]}")
+        worst["bf16"] = max(worst["bf16"], *held)
+        del plain
+        lib_err = max(float((a.float() - b.transpose(1, 2).float()).abs().max() / (b.float().abs().max() + 1e-6))
+                      for a, b in zip(ours, lib))
+        timed[name] = {
+            "q": [b, s, hq, dh], "k": [b, s, hkv, dh], "dtype": "bfloat16", "causal": True,
+            "ms": ms, "call_ms": timer.call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+                                               calls=5, reps=10),
+            "tflops": 2.5 * attention_flops(q, k, True, 0) / (ms * 1e-3) / 1e12,
+            "bound_ms": bound, "bound_by": by,
+            "plain_ms": timer.call_ms(lambda: flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=True),
+                                      calls=2, reps=3),
+            "library_ms": timer.call_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+                                        calls=5, reps=10),
+            "max_rel_err_vs_plain": max(held), "max_rel_err_vs_library": lib_err,
+        }
+        del q, k, v, o, do, lse, o_ref, lse_ref, qt, kt, vt, lib_out, lib, ours
+        torch.cuda.empty_cache()
+    return {"test_cases": cases, "max_rel_err_f32": worst["f32"], "max_rel_err_bf16": worst["bf16"],
+            "max_abs_err": max_abs, "tolerance_rel": BWD_REL, "bit_equal_two_runs": True,
+            "forward_with_lse": {**fwd, "tolerance_lse": LSE_TOL, "lse_no_key_at_most": LSE_NO_KEY,
+                                 "tolerance_o_f32": F32_TOL, "tolerance_o_bf16": BF16_TOL},
+            "rows_that_see_no_key_add_nothing": True, "timed": timed,
+            "timing": "ms: device time replayed from a CUDA graph (one call = the D, dK/dV and dQ kernels); "
+                      "call_ms, plain_ms (flash_attention_bwd_ref), library_ms (torch.autograd.grad of "
+                      "scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies, its forward "
+                      "done once): calls enqueued back to back; max_rel_err_vs_library: largest difference of a "
+                      "gradient over its largest magnitude (each from its own forward), recorded, not checked"}
+
+
 def phase_attention(device: torch.device, timer: Timer) -> dict:
     import torch.nn.functional as F
 
@@ -1200,7 +1533,9 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
     library_ms = timer.call_ms(lib_fn)
     library_device_ms = timer.device_ms(lib_fn)
     bound_ms, bound_by = attention_bound_ms(q, k, True, 0)
+    backward = attention_backward(device, timer, qkv)
     out = {
+        "backward": backward,
         "test_cases": cases, "max_abs_err_f32": max_err["f32"], "max_abs_err_bf16": max_err["bf16"],
         "tolerance_f32": F32_TOL, "tolerance_bf16": BF16_TOL, "bit_equal_two_runs": True,
         "kv_valid_len_refused": refused, "path": path, "path_max_abs_err": path_err,
@@ -1227,14 +1562,11 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
 ATTN_GROUPS = {"flash_attention_ms": ("attn_bf16_wgmma",)}
 
 
-def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
-    """Device time by kernel over one call of `fn` (`torch.profiler`), summed
-    over device rows only, beside the wall time; `groups` maps a key to the
-    kernel-name pieces whose device time it sums.  A session can lose its
-    first kernel (gin-tu's first reduce went missing from one), so a short
-    spin kernel goes first and is left out of the sums."""
+def device_rows(prof) -> list[tuple[float, str, int]]:
+    """(device µs, kernel name, calls) of a finished `torch.profiler` session,
+    device rows only, longest first; the spin kernel that starts a session
+    (`profile_window`) is left out."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def device_us(e):
         for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -1242,6 +1574,30 @@ def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
             if v is not None:
                 return float(v)
         return 0.0
+
+    return sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
+                   and "spin_kernel" not in e.key), reverse=True)
+
+
+def summarize_profile(rows, wall_s: float, groups: dict) -> dict:
+    """Device time and busy share over `wall_s`; `groups` maps a key to the
+    kernel-name pieces whose device time it sums."""
+    total = sum(r[0] for r in rows) / 1e3
+    by_group = {key: sum(r[0] for r in rows if any(p in r[1] for p in pieces)) / 1e3
+                for key, pieces in groups.items()}
+    return {"wall_ms": wall_s * 1e3, "device_ms": total, "device_busy_share": total / (wall_s * 1e3),
+            **by_group,
+            "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
+
+
+def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
+    """Device time by kernel over one call of `fn` (`torch.profiler`), summed
+    over device rows only, beside the wall time; `groups` maps a key to the
+    kernel-name pieces whose device time it sums.  A session can lose its
+    first kernel (gin-tu's first reduce went missing from one), so a short
+    spin kernel goes first and is left out of the sums."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1251,15 +1607,7 @@ def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
-                   and "spin_kernel" not in e.key), reverse=True)
-    total = sum(r[0] for r in rows) / 1e3
-    by_group = {key: sum(r[0] for r in rows if any(p in r[1] for p in pieces)) / 1e3
-                for key, pieces in groups.items()}
-    return {"wall_ms": wall * 1e3, "device_ms": total, "device_busy_share": total / (wall * 1e3),
-            **by_group,
-            "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
+    return summarize_profile(device_rows(prof), wall, groups)
 
 
 def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict, int]:
@@ -1419,6 +1767,161 @@ def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict,
     }
     say("serve", **out)
     return out, launches
+
+
+# --------------------------------------------------------------------------- training
+
+LM_TRAIN_ARCH = "llama3.2-3b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128  # launch.train's defaults
+GNN_TRAIN_ARCHS = ("gin-tu", "gat-cora", "pna")
+PROFILED_STEP = 5  # one step in the first half, so the last ten are not slowed by the profiler
+LM_GROUPS = {"gemm_ms": ("gemm", "xmma", "cutlass", "nvjet", "sm90_"), "attention_forward_ms": ("attn_bf16_wgmma",),
+             "attention_backward_ms": ("attn_bwd_",)}
+
+
+class StepRecorder:
+    """`on_step` for `launch.train.train`: each step's loss and the host
+    clock at its synchronised end; `torch.profiler` over step PROFILED_STEP
+    alone (started at the end of the step before it)."""
+
+    def __init__(self, groups: dict):
+        self.losses, self.ends, self.groups = [], [], groups
+        self.profile = None
+        self._prof = None
+
+    def __call__(self, state, metrics, batch):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.losses.append(metrics["loss"])
+        self.ends.append(now)
+        if metrics["step"] == PROFILED_STEP - 1:
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+        elif metrics["step"] == PROFILED_STEP:
+            self._prof.__exit__(None, None, None)
+            self.profile = summarize_profile(device_rows(self._prof), now - self._t0, self.groups)
+            self._prof = None
+
+    def step_ms(self) -> float:
+        """Median wall of the last ten steps (end to end of consecutive steps)."""
+        walls = np.diff(self.ends)[-10:] * 1e3
+        return float(np.median(walls))
+
+    def float_losses(self) -> list[float]:
+        return [float(x) for x in self.losses]
+
+
+def phase_train(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """`launch.train.train`, the code path of `python -m repro_torch.launch.train`:
+    llama3.2-3b at its published width and depth for TRAIN_STEPS steps at the
+    reference's defaults (batch 8, seq 128, lr 1e-3, AdamW with clip 1.0, a
+    recompute a layer), then gin-tu, gat-cora and pna at `full_graph_sm`'s
+    widths on the reference's graph (R-MAT, 512 nodes, 4,096 edges), and
+    graphcast refused.  The kernels' counts are set to 0 just before and read
+    just after; returns the numbers and the counts."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.launch.train import GRAPHCAST_REFUSAL, train
+    from repro_torch.train.optim import adamw, cosine_schedule
+
+    cfg = get_arch(LM_TRAIN_ARCH).model_config()
+    rec = StepRecorder(LM_GROUPS)
+    log = []
+    gc.collect()  # what the earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = segment_spmm.launches = 0
+    t0 = time.perf_counter()
+    state = train(LM_TRAIN_ARCH, steps=TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=TRAIN_LR,
+                  device=device, seed=seed, on_step=rec, log_fn=log.append)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "flash_attention_bwd": flash_attention_bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = rec.float_losses()
+    check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, f"llama trained {state.step} steps")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"llama losses: {losses}")
+    check(launches["flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"attention forward launches {launches['flash_attention']}, want 2 a layer a step (recompute)")
+    check(launches["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS,
+          f"attention backward launches {launches['flash_attention_bwd']}, want 1 a layer a step")
+    check(segment_spmm.launches == 0, "the LM path launched the ELL reduce")
+    step_ms = rec.step_ms()
+    # the optimizer alone: one AdamW update (clip included) of every leaf, after training.  The
+    # params stand in for their own gradients (a 14.4 GB gradient tree would not fit beside
+    # params, mu and nu); the same work on the same shapes, and the values are thrown away
+    opt = adamw(cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    opt_ms = []
+    for _ in range(3):
+        ev[0].record()
+        opt.update(state.params, state.opt_state, state.params, TRAIN_STEPS)
+        ev[1].record()
+        torch.cuda.synchronize()
+        opt_ms.append(ev[0].elapsed_time(ev[1]))
+    del state
+    torch.cuda.empty_cache()
+    prof = rec.profile
+    prof["optimizer_ms_measured_alone"] = statistics.median(opt_ms)
+    prof["other_ms"] = prof["device_ms"] - prof["gemm_ms"] - prof["attention_forward_ms"] - prof["attention_backward_ms"]
+    lm = {
+        "arch": LM_TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": cfg.num_params,
+        "param_dtype": "float32", "activations": "bfloat16", "remat": cfg.remat, "cuts": [],
+        "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+        "wall_s": wall_s, "step_ms_median_last10": step_ms,
+        "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (step_ms / 1e3),
+        "max_memory_allocated_gb": peak_gb, "profile_one_step": prof,
+        "flash_attention_launches_a_step": launches["flash_attention"] / TRAIN_STEPS,
+        "flash_attention_bwd_launches_a_step": launches["flash_attention_bwd"] / TRAIN_STEPS,
+        "log": log,
+    }
+
+    gnns = {}
+    segment_spmm.launches = 0
+    for arch in GNN_TRAIN_ARCHS:
+        gcfg = get_arch(arch).model_config("full_graph_sm")
+        grec = StepRecorder({"segment_fused_ms": ("segment_fused",), "gemm_ms": ("gemm", "xmma", "cutlass", "nvjet")})
+        before = segment_spmm.launches
+        st = train(arch, steps=TRAIN_STEPS, lr=TRAIN_LR, device=device, seed=seed, on_step=grec,
+                   log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        n_launch = segment_spmm.launches - before
+        gl = grec.float_losses()
+        check(st.step == TRAIN_STEPS and all(np.isfinite(gl)), f"{arch}: losses {gl}")
+        want = (2 * gcfg.n_layers - 1) * TRAIN_STEPS if gcfg.kind == "gin" else 0
+        check(n_launch == want, f"{arch}: {n_launch} segment_spmm launches in training, want {want}")
+        gnns[arch] = {"kind": gcfg.kind, "layers": gcfg.n_layers, "d_hidden": gcfg.d_hidden, "d_in": gcfg.d_in,
+                      "params": gcfg.num_params, "losses": gl, "step_ms_median_last10": grec.step_ms(),
+                      "segment_spmm_launches_a_step": n_launch / TRAIN_STEPS, "profile_one_step": grec.profile}
+        del st
+    gnn_launches = segment_spmm.launches
+    gnns[GNN_ARCH]["held_against_scatter"] = gin_training_held(device, seed)  # after the count is read
+    refused = None
+    try:
+        train("graphcast", steps=1, device=device, seed=seed, log_fn=lambda _: None)
+    except SystemExit as e:
+        refused = str(e)
+    check(refused == GRAPHCAST_REFUSAL, f"graphcast training must be refused as the reference refuses it: {refused}")
+    torch.cuda.empty_cache()
+    out = {
+        "lm": lm, "gnn": gnns, "gnn_graph": "rmat(512, 4096, seed 0), GraphBatcher.full_batch (launch.train)",
+        "graphcast_refused": refused, "segment_spmm_launches": gnn_launches,
+        "timing": "step_ms_median_last10: host clock between the synchronised ends of consecutive loop steps "
+                  "(batch fetch, step and the loop's bookkeeping), median of the last 10; profile_one_step: "
+                  "torch.profiler over step 5 alone (device time by kernel, busy share = that over the step's "
+                  "wall); optimizer_ms_measured_alone: one AdamW update (clip included) of every leaf after "
+                  "training, the params standing in for the gradients, CUDA events, median of 3",
+        "card": smi,
+    }
+    say("train", **out)
+    return out, {**launches, "segment_spmm": gnn_launches}
 
 
 # --------------------------------------------------------------------------- embedding bag
@@ -1910,7 +2413,8 @@ def main() -> int:
     say("probe", **info)
 
     t0 = time.perf_counter()
-    sources = {"ell_spmm": KERNEL_SOURCE, "flash_attention": FA_SOURCE, "embedding_bag": BAG_SOURCE}
+    sources = {"ell_spmm": KERNEL_SOURCE, "flash_attention": FA_SOURCE, "flash_attention_bwd": FA_BWD_SOURCE,
+               "embedding_bag": BAG_SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc a source, all at once
         libs = dict(zip(sources, pool.map(build_library, sources)))
     say("build", sources=list(sources.values()), libraries=[p.name for p in libs.values()],
@@ -1941,6 +2445,7 @@ def main() -> int:
     attn = phase_attention(device, timer)
     _, fa_launches = phase_serve(device, args.seed, info["nvidia_smi"])
     torch.cuda.empty_cache()
+    _, train_launches = phase_train(device, args.seed, info["nvidia_smi"], timer)
     bag = phase_bag(device, args.seed, timer)
     _, bag_launches = phase_recsys(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
@@ -1957,7 +2462,12 @@ def main() -> int:
         "library_device_ms": kern["library_device_ms"], "per_bucket_reduce_ms": kern["per_bucket_reduce_ms"],
         "launches_per_reduce": kern["launches_per_reduce"], "entry": "segment_spmm_launch (every bucket, one launch)",
         "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
-        "launches_gnn": gnn_launches,
+        "launches_gnn": gnn_launches, "launches_train": train_launches["segment_spmm"],
+        "gin_transpose": {"shape": f"the transposed reduce of gin-tu's backward on amazon (ELL of the unreversed "
+                                   f"edges, weights 1) at D={gnn['amazon']['train']['transpose_reduce']['D']}, f32",
+                          **{k: gnn["amazon"]["train"]["transpose_reduce"][k] for k in (
+                              "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "library_device_ms", "max_abs_err_vs_library", "max_abs_err_vs_plain")}},
         "gin": {"shape": f"GIN's neighbour sum on amazon ({gnn['amazon']['nodes']:,} nodes, "
                          f"{gnn['amazon']['edges']:,} edges, ELL of the reversed edges, weights 1), f32",
                 **{k: {f: r[f] for f in ("D", "ms", "call_ms", "no_hub_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1974,6 +2484,20 @@ def main() -> int:
         "library_device_ms": attn["library_device_ms"], "achieved_tflops": attn["achieved_tflops"],
         "shape": f"llama3.2-3b prefill attention: q (1, {ATTN_TIMED_S}, 24, 128), k/v (1, {ATTN_TIMED_S}, 8, 128) "
                  "bf16, causal",
+        "launches_train": train_launches["flash_attention"],
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
+        "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
+                    "its attention by autodiff)",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": attn["backward"]["max_abs_err"],
+        "max_rel_err_f32": attn["backward"]["max_rel_err_f32"], "max_rel_err_bf16": attn["backward"]["max_rel_err_bf16"],
+        **{k: attn["backward"]["timed"]["train"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "library_ms", "tflops")},
+        "shape": "llama3.2-3b training attention: q (8, 128, 24, 128), k/v (8, 128, 8, 128) bf16, causal; "
+                 "library: the backward of scaled_dot_product_attention",
+        "serve_shape": {k: attn["backward"]["timed"]["serve"][k] for k in (
+            "q", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")},
     }, {
         "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE, "replaces": BAG_REPLACES,
         "launches": bag_launches,

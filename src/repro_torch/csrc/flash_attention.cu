@@ -8,7 +8,10 @@
 // -inf, so the correction on a fully masked tile stays finite); running max,
 // denominator and accumulator in fp32; l clamped at 1e-30; output in q's type.
 // kv_valid_len (decode masking) is not taken, as on the TPU: the wrapper
-// raises before a launch.
+// raises before a launch.  Optionally (a non-null `lse`) both paths also store
+// each row's log-sum-exp of the scaled scores, lse = m + log l in natural
+// units, float32 (B, Hq, Sq): the backward (`flash_attention_bwd.cu`)
+// recomputes the probabilities from it.
 //
 // What bounds it.  On the serve path (llama3.2-3b prefill, q (1, S, 24, 128),
 // k/v (1, S, 8, 128) bf16, causal, S = 512..3072) attention does
@@ -72,6 +75,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int THREADS = 128;
 constexpr int STAGES = FA_STAGES;
 constexpr int BK = 128;  // kv rows a tile
@@ -82,6 +86,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) or null
   int B, Sq, Skv, Hq, Hkv;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -484,6 +489,13 @@ __global__ void __launch_bounds__((NC + 1) * THREADS, 1)
       st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
       inv[r] = 1.f / fmaxf(st.l[r], 1e-30f);
     }
+    if (a.lse != nullptr && st.t4 == 0) {  // the running max is in log2 units
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + r0 + r * 8;
+        if (row < a.Sq) a.lse[((long long)b * a.Hq + h) * a.Sq + row] = st.m[r] * LN2 + logf(fmaxf(st.l[r], 1e-30f));
+      }
+    }
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -611,6 +623,7 @@ __global__ void __launch_bounds__(THREADS) attn_f32_fma(const Args a) {
     const int row = q0 + rg * 4 + i;
     if (row >= a.Sq) continue;
     const float denom = fmaxf(lt, 1e-30f);
+    if (a.lse != nullptr && cg == 0) a.lse[((long long)b * a.Hq + h) * a.Sq + row] = m[i] + logf(denom);
     float* orow = og + (((long long)b * a.Sq + row) * a.Hq + h) * D + cg;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[16 * j] = acc[i][j] / denom;
@@ -714,11 +727,12 @@ int info(int nc, int* regs, int* local_bytes, int* smem, int* threads) {
 }  // namespace
 
 // q, k, v: (B, S, H, dh) with unit stride along dh, strides in elements (the
-// wrapper checks 16-byte alignment); out: contiguous (B, Sq, Hq, dh).
+// wrapper checks 16-byte alignment); out: contiguous (B, Sq, Hq, dh); lse:
+// contiguous float32 (B, Hq, Sq), or null when the caller needs none.
 // dtype: 0 float32, 1 bfloat16.  Returns 0, a CUDA error code, -1 for
 // arguments the kernel does not take, or -2 when the driver refuses a tensor
 // map of q, k or v.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out, void* lse,
                                       int B, int Sq, int Skv, int Hq, int Hkv, int dh,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_ss, long long k_sh,
@@ -728,7 +742,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   if (B > 65535 || Hq > 65535 || (Sq + 63) / 64 > 65535) return -1;
-  const Args a{q, k, v, out, B, Sq, Skv, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+  const Args a{q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, causal, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {

@@ -184,6 +184,11 @@ class EllBlocks:
     `build_ell` stores every bucket in one flat buffer each for rows, cols and
     weights (the per-bucket tensors are views into them); `work()` returns
     that layout with its work table.
+
+    `transpose`, where set, is the ELL of the same edges the other way round
+    (rows the sources, cols the destinations, the same weights): the reduce
+    over it is the transpose of the reduce over this one, which is what
+    `segment_spmm`'s backward launches.
     """
 
     num_nodes: int
@@ -193,6 +198,7 @@ class EllBlocks:
     widths: list[int]
     _flat: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
     _work: EllWork | None = dataclasses.field(default=None, repr=False, compare=False)
+    transpose: "EllBlocks | None" = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def num_buckets(self) -> int:

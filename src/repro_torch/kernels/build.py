@@ -15,7 +15,8 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["CSRC_DIR", "NVCC_FLAGS", "build_dir", "find_nvcc", "build_library", "load_library"]
+__all__ = ["CSRC_DIR", "NVCC_FLAGS", "build_dir", "find_nvcc", "build_library", "load_library",
+           "launch_on_device"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 
@@ -66,3 +67,14 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build_library(name)))
     return lib
+
+
+def launch_on_device(fn, device, args: tuple) -> int:
+    """Call a library's launcher with `args` and the current stream of
+    `device` (the CUDA device that holds the tensors); returns its code."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)

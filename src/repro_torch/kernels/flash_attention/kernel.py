@@ -1,10 +1,12 @@
-"""Build, argument checks and launch of the CUDA kernel `csrc/flash_attention.cu`.
+"""Build, argument checks and launch of the CUDA kernels `csrc/flash_attention.cu`
+(forward) and `csrc/flash_attention_bwd.cu` (backward).
 
 Importing this module builds nothing and needs no CUDA: `nvcc` runs at the
-first launch (see `repro_torch.kernels.build`).  `flash_attention_cuda` takes
-CUDA tensors only and raises on anything the kernel does not take; the choice
-between kernel and plain version is made in `ops.py`.  Each launch adds one
-to `ops.flash_attention.launches`, here and nowhere else.
+first launch (see `repro_torch.kernels.build`).  `flash_attention_cuda` and
+`flash_attention_bwd_cuda` take CUDA tensors only and raise on anything the
+kernels do not take; the choice between kernel and plain version is made in
+`ops.py`.  Each launch adds one to `ops.flash_attention.launches` or
+`ops.flash_attention_bwd.launches`, here and nowhere else.
 """
 from __future__ import annotations
 
@@ -13,15 +15,18 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import launch_on_device, load_library
 from repro_torch.kernels.flash_attention import ops
 
-__all__ = ["LIBRARY", "HEAD_DIMS", "bind_launcher", "flash_attention_cuda", "kernel_info"]
+__all__ = ["LIBRARY", "LIBRARY_BWD", "HEAD_DIMS", "bind_launcher", "flash_attention_cuda",
+           "flash_attention_bwd_cuda", "kernel_info"]
 
 LIBRARY = "flash_attention"
+LIBRARY_BWD = "flash_attention_bwd"
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_BWD = None
 _ERRORS = "-1: refused arguments, -2: the driver refused a tensor map of q, k or v"
 
 
@@ -29,7 +34,7 @@ def bind_launcher(lib: ctypes.CDLL):
     """The library's `flash_attention_launch` with its argument types set."""
     fn = lib.flash_attention_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v out lse
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B Sq Skv Hq Hkv dh
         *([ctypes.c_longlong] * 9),  # (b, s, h) strides of q, k, v
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal q_offset scale dtype
@@ -44,6 +49,20 @@ def _launcher():
     if _FN is None:
         _FN = bind_launcher(load_library(LIBRARY))
     return _FN
+
+
+def _bwd_launcher():
+    global _BWD
+    if _BWD is None:
+        fn = load_library(LIBRARY_BWD).flash_attention_bwd_launch
+        fn.argtypes = [
+            *([ctypes.c_void_p] * 10),  # q k v o dout lse delta dq dk dv
+            *([ctypes.c_int] * 8),  # B Sq Skv Hq Hkv dh causal q_offset
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale dtype stream
+        ]
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor):
@@ -62,14 +81,7 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor):
         )
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0
-) -> torch.Tensor:
-    """q (B, Sq, Hq, dh), k/v (B, Skv, Hkv, dh), f32|bf16, dh ∈ {32, 64, 128},
-    Hq a multiple of Hkv → (B, Sq, Hq, dh) in q's type.  One launch on the
-    current stream, no synchronisation; the output is the only allocation."""
-    if not q.is_cuda:
-        raise ValueError("flash_attention_cuda takes CUDA tensors; the plain version is ref.flash_attention_ref")
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -82,26 +94,84 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads are not a multiple of {hkv} kv heads")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
+    with_lse: bool = False,
+):
+    """q (B, Sq, Hq, dh), k/v (B, Skv, Hkv, dh), f32|bf16, dh ∈ {32, 64, 128},
+    Hq a multiple of Hkv → (B, Sq, Hq, dh) in q's type, and with `with_lse`
+    also each row's log-sum-exp of the scaled scores, float32 (B, Hq, Sq).
+    One launch on the current stream, no synchronisation; the outputs are the
+    only allocations."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_cuda takes CUDA tensors; the plain version is ref.flash_attention_ref")
+    _check_shapes(q, k, v)
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     if skv == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
     args = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
         b, sq, skv, hq, hkv, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(bool(causal)), int(q_offset), 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
     )
-    if q.device.index == torch.cuda.current_device():
-        err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
-    else:  # the launch goes to the device that holds the tensors
-        with torch.cuda.device(q.device):
-            err = _launcher()(*args, torch.cuda.current_stream().cuda_stream)
+    err = launch_on_device(_launcher(), q.device, args)
     if err != 0:
         raise RuntimeError(f"flash_attention: launch failed with CUDA error {err} ({_ERRORS})")
     ops.flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of `flash_attention_cuda(q, k, v)` for the
+    output cotangent `dout`, from the forward's output `o` and `lse` (float32
+    (B, Hq, Sq)); q, k, v, o, dout of one type and contiguous (the autograd
+    Function makes them so).  One call of the backward library (three
+    launches on the current stream, no synchronisation); the gradients and a
+    (B, Hq, Sq) float32 scratch are the only allocations."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd_cuda takes CUDA tensors; the plain version is "
+                         "ref.flash_attention_bwd_ref")
+    _check_shapes(q, k, v)
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    for name, t, like in (("o", o, q), ("dout", dout, q)):
+        _check(name, t, like)
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} != q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous")
+    if lse.dtype != torch.float32 or lse.shape != (b, hq, sq) or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 {(b, hq, sq)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if skv == 0:
+        raise ValueError("flash_attention_bwd: no keys (Skv = 0)")
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, skv, hq, hkv, dh, int(bool(causal)), int(q_offset), 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
+    )
+    err = launch_on_device(_bwd_launcher(), q.device, args)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: launch failed with CUDA error {err} (-1: refused arguments)")
+    ops.flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def kernel_info(dh: int, consumer_groups: int) -> dict:

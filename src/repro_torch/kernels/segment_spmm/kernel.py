@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.graph.structs import EllBlocks
-from repro_torch.kernels.build import build_library, load_library
+from repro_torch.kernels.build import build_library, launch_on_device, load_library
 from repro_torch.kernels.segment_spmm import ops
 
 __all__ = ["LIBRARY", "build", "ell_spmm_cuda", "segment_spmm_cuda"]
@@ -58,14 +58,6 @@ def _fused_launcher():
     return _FUSED
 
 
-def _on_device(fn, device: torch.device, args: tuple) -> int:
-    """Call a launcher on the stream of the device that holds the tensors."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-
-
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype, ndim: int):
     if t.device != device:
         raise ValueError(f"ell_spmm: {name} lies on {t.device}, x on {device}")
@@ -104,7 +96,7 @@ def ell_spmm_cuda(
         x.data_ptr(), cols.data_ptr(), wts.data_ptr() if wts is not None else None,
         out.data_ptr(), n, d, r, w, _DTYPE_CODE[x.dtype],
     )
-    err = _on_device(_launcher(), x.device, args)
+    err = launch_on_device(_launcher(), x.device, args)
     if err != 0:
         raise RuntimeError(f"ell_spmm: launch failed with CUDA error {err} (-1: refused arguments)")
     ops.ell_spmm.launches += 1
@@ -139,7 +131,7 @@ def segment_spmm_cuda(x: torch.Tensor, ell: EllBlocks) -> torch.Tensor:
         work.rows.data_ptr(), work.items.data_ptr(), work.zero_rows.data_ptr(), out.data_ptr(),
         n, d, work.items.shape[0], work.zero_rows.numel(), _DTYPE_CODE[x.dtype],
     )
-    err = _on_device(_fused_launcher(), x.device, args)
+    err = launch_on_device(_fused_launcher(), x.device, args)
     if err != 0:
         raise RuntimeError(f"segment_spmm: launch failed with CUDA error {err} (-1: refused arguments)")
     ops.segment_spmm.launches += 1

@@ -22,13 +22,15 @@ GIN's neighbour sum is an SpMM, out[v] = Σ_{(u→v)} h[u]: with
 `kernels.segment_spmm` over the degree-binned ELL of the batch's reversed,
 unmasked edges (`batch_ell`, built once a batch and carried as
 `batch["ell"]`): the CUDA kernel for a CUDA `h`, its plain version for a CPU
-`h`.  `"scatter"` is the reference's gather + `index_add_`, kept for
-comparison in the port.  GAT's, PNA's and GraphCast's sums stay
-`index_add_`/`scatter_reduce_`: they add per-edge features (attention-weighted
-per head, or made by an edge MLP), not gathered node rows, so they are not
-that SpMM.  The ELL kernel has no backward (ROADMAP.md Queue B 4): a GIN
-forward on the card with grad on raises; run it under `torch.no_grad()` or
-`torch.inference_mode()`.
+`h`.  Its gradient is the same reduce over the transposed ELL (the ELL of the
+unreversed edges, `batch_ell(..., transpose=True)` carries it as
+`batch["ell"].transpose`): a training step on the card launches the kernel
+once a layer forward and once a layer backward but the first (the input
+features need no gradient).  `"scatter"` is the reference's gather +
+`index_add_`, kept for comparison in the port.  GAT's, PNA's and GraphCast's
+sums stay `index_add_`/`scatter_reduce_`: they add per-edge features
+(attention-weighted per head, or made by an edge MLP), not gathered node
+rows, so they are not that SpMM.
 
 Batch dict convention (tensors, static shapes):
   x          (N, d_in)   node features (grid features for graphcast)
@@ -38,7 +40,8 @@ Batch dict convention (tensors, static shapes):
   labels     (N,) int32 node labels | (G,) graph labels | (N, d_out) targets
   train_mask (N,) bool   (node classification)
   graph_ids  (N,) int32  graph membership for batched small graphs
-  ell        EllBlocks   GIN with reduce_impl="ell" only (`batch_ell`)
+  ell        EllBlocks   GIN with reduce_impl="ell" only (`batch_ell`; its
+                         `transpose` for training)
 GraphCast adds mesh arrays — see `graphcast_forward`.
 """
 from __future__ import annotations
@@ -249,19 +252,25 @@ def init_params(cfg: GnnConfig, seed: int = 0, *, device: str | torch.device | N
     return _init_tree(ini, param_shapes(cfg), cfg.param_dtype)
 
 
-def batch_ell(batch: dict, *, device: str | torch.device | None = None) -> EllBlocks:
+def batch_ell(batch: dict, *, device: str | torch.device | None = None, transpose: bool = False) -> EllBlocks:
     """The ELL that GIN's sum reads, for one batch: `build_ell` of the reversed
     graph of the batch's unmasked edges (rows are destinations, cols their
     sources), without weights, made on `device` (None: the card).  R-MAT
     multi-edges stay, each counted once, as the scatter route counts them.
-    Host work (a CSR sort of the edges): build it once a batch and carry it
-    as `batch["ell"]`."""
+    With `transpose` its `.transpose` is `build_ell` of the same edges
+    unreversed (rows the sources), which the reduce's backward reads: a
+    vertex of out-degree 0 is in none of its rows, and its hub rows are the
+    vertices of high out-degree.  Host work (a CSR sort of the edges, twice
+    with `transpose`): build it once a batch and carry it as `batch["ell"]`."""
     def host(a):
         return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
     mask = host(batch["edge_mask"]).astype(bool)
-    g = HostGraph(int(batch["x"].shape[0]), host(batch["dst"])[mask], host(batch["src"])[mask])
-    return build_ell(g, device=device)
+    g = HostGraph(int(batch["x"].shape[0]), host(batch["src"])[mask], host(batch["dst"])[mask])
+    ell = build_ell(g.reversed(), device=device)
+    if transpose:
+        ell.transpose = build_ell(g, device=device)
+    return ell
 
 
 # ------------------------------ forwards -----------------------------------

@@ -7,10 +7,17 @@ The port of `repro.models.transformer` for one device.  What carries over:
   * the dtype steps — params in `cfg.param_dtype`, activations in `cfg.dtype`,
     fp32 norm statistics, rope and attention softmax.
 What changes:
-  * `lax.scan` over layers is a Python loop over the stacked tensors; no
-    remat, no mesh (`models/sharding.py` is not ported).
+  * `lax.scan` over layers is a Python loop over the stacked tensors, split
+    once a forward with `torch.unbind` (its backward is one `stack` a leaf,
+    where indexing each layer would add a leaf-sized zero tensor a layer);
+    `cfg.remat` (default True, as the reference) recomputes each layer in the
+    backward (`torch.utils.checkpoint`, non-reentrant) when grad is on, so the
+    attention forward kernel runs twice a layer in a training step; no mesh
+    (`models/sharding.py` is not ported).
   * Attention of prefill and forward goes through `ops.flash_attention`
-    (the CUDA kernel for a CUDA tensor).  The JAX model reaches its blocked
+    (the CUDA kernel for a CUDA tensor; with grad on, through its autograd
+    Function, whose backward is the kernel `csrc/flash_attention_bwd.cu`).
+    The JAX model reaches its blocked
     reference only above `BLOCKED_ATTN_THRESHOLD · 64` and `gqa_attention`
     otherwise; both compute the same function.  In `prefill` the slot is fresh
     (pos = 0), so attention over the cache restricted to `kv_valid_len = s`
@@ -31,6 +38,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -66,6 +74,7 @@ class TransformerConfig:
     attn_block_k: int = 1024
     attn_skip_masked_blocks: bool = False
     attn_impl: str = "auto"  # ops.flash_attention's impl for prefill/forward
+    remat: bool = True  # recompute each layer in the backward (forward with grad on)
 
     @property
     def head_dim(self) -> int:
@@ -198,6 +207,12 @@ def _layer(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+def _layers(params: dict, n: int) -> list[dict]:
+    """Every layer's weights, each stacked leaf split once (`torch.unbind`)."""
+    split = {k: torch.unbind(v, 0) for k, v in params["layers"].items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
 def _embed(params: dict, tokens, cfg: TransformerConfig) -> torch.Tensor:
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
@@ -215,8 +230,12 @@ def forward(params: dict, tokens, cfg: TransformerConfig) -> torch.Tensor:
     _dense_only(cfg)
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(x.shape[1], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _layers(params, cfg.n_layers):
+        if remat:
+            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, use_reentrant=False)
+        else:
+            x = _prompt_layer(cfg, x, lp, cos, sin)
     return _head(params, x, cfg)
 
 

@@ -14,8 +14,8 @@ from repro_torch.graph.generators import rmat
 from repro_torch.graph.structs import HostGraph, build_ell
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
 from repro_torch.kernels.segment_spmm.ref import coo_spmm_ref, ell_spmm_ref, segment_spmm_ref
 
@@ -161,28 +161,65 @@ def test_fused_reduce_matches_the_plain_version_at_gin_widths(d, dtype):
 
 
 @pytest.mark.gpu
-def test_gin_forward_with_grad_on_the_card_raises():
-    """The ELL reduce has no backward: a GIN forward whose activations
-    require grad raises on the card, and runs under no_grad."""
+def test_gin_gradients_on_the_card_match_the_scatter_route():
+    """A GIN training step's gradients through the ELL reduce (its backward
+    the same kernel over the transposed ELL) against the scatter route on the
+    same weights, within 1e-4 (float32 sums in another order); 5 forward and 4
+    backward launches at gin-tu's 5 layers (the input features need no
+    gradient).  Without the transpose a gradient is refused before a launch."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import GraphBatcher, to_device
     from repro_torch.models import gnn
 
     _need_card()
-    cfg = get_arch("gin-tu").smoke_config()
-    batch = GraphBatcher(rmat(64, 400, seed=0), d_feat=cfg.d_in, n_classes=cfg.d_out).full_batch()
-    batch = to_device(batch, "cuda")
-    batch["ell"] = gnn.batch_ell(batch, device="cuda")
+    cfg = get_arch("gin-tu").model_config("full_graph_sm")
+    host = GraphBatcher(rmat(512, 4096, seed=0), d_feat=cfg.d_in, n_classes=cfg.d_out).full_batch()
+    batch = to_device(host, "cuda")
+    batch["ell"] = gnn.batch_ell(host, device="cuda", transpose=True)
     params = gnn.init_params(cfg, 0, device="cuda")
-    for p in (params["layers"][0]["mlp"]["w0"], params["layers"][0]["eps"]):
-        p.requires_grad_(True)
+    leaves = [p.requires_grad_(True) for lp in params["layers"] for p in (lp["mlp"]["w0"], lp["eps"])]
     before = segment_spmm.launches
-    with pytest.raises(NotImplementedError, match="no backward"):
-        gnn.forward(params, batch, cfg)
-    with torch.no_grad():
-        out = gnn.forward(params, batch, cfg)
-    assert out.shape == (64, cfg.d_out) and bool(torch.isfinite(out).all())
-    assert segment_spmm.launches - before == 1 + cfg.n_layers  # layer 1's launch, then a full forward
+    got = torch.autograd.grad(gnn.loss_fn(params, batch, cfg), leaves)
+    assert segment_spmm.launches - before == 2 * cfg.n_layers - 1
+    import dataclasses
+
+    want = torch.autograd.grad(gnn.loss_fn(params, batch, dataclasses.replace(cfg, reduce_impl="scatter")), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    batch["ell"] = gnn.batch_ell(host, device="cuda")
+    before = segment_spmm.launches
+    with pytest.raises(ValueError, match="no transpose"):
+        gnn.loss_fn(params, batch, cfg)
+    assert segment_spmm.launches - before == 1  # layer 1's input needs no gradient
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 64, 100])
+def test_reduce_gradient_is_the_transposed_reduce(d, dtype):
+    """The reduce's gradient on the hub graph (a hub of in-degree 1,500;
+    vertices of in- and of out-degree 0) against autograd through the COO
+    oracle; one backward launch; two runs bit-equal."""
+    _need_card()
+    g = _hub_graph(True, seed=d)
+    ell = build_ell(g.reversed())
+    ell.transpose = build_ell(g)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((g.num_nodes, d)).astype(np.float32)).cuda().to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((g.num_nodes, d)).astype(np.float32)).cuda().to(dtype)
+    src, dst, w = (torch.from_numpy(a).cuda() for a in (g.src, g.dst, g.weight))
+    xg = x.clone().requires_grad_(True)
+    before = segment_spmm.launches
+    (got,) = torch.autograd.grad(segment_spmm(xg, ell), xg, dy)
+    assert segment_spmm.launches - before == 2
+    (again,) = torch.autograd.grad(segment_spmm(xg, ell), xg, dy)
+    assert torch.equal(got, again)
+    xf = x.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(coo_spmm_ref(xf, src, dst, w, g.num_nodes), xf, dy.float())
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, **(TOL if dtype == torch.float32 else BF16_TOL))
+    no_out = torch.from_numpy(np.setdiff1d(np.arange(g.num_nodes), g.src)).cuda()
+    assert bool((got[no_out] == 0).all())
 
 
 @pytest.mark.gpu
@@ -198,7 +235,7 @@ def test_fused_reduce_refuses_what_the_kernel_does_not_take():
         segment_spmm(x.double(), ell)
     with pytest.raises(ValueError):
         segment_spmm(x.t().contiguous().t(), ell)  # not contiguous
-    with pytest.raises(NotImplementedError, match="impl='ref'"):
+    with pytest.raises(ValueError, match="no transpose"):
         segment_spmm(x.requires_grad_(), ell)
     assert segment_spmm.launches == before
 
@@ -368,16 +405,117 @@ def test_embedding_bag_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-def test_kernels_without_a_backward_refuse_grad_on_the_card():
+def test_attention_with_grad_on_the_card_runs_its_backward_kernel():
+    """With grad on, attention runs the forward kernel (with its lse) and, in
+    backward, the backward kernel: one launch each.  The one-bucket
+    `ell_spmm` has no backward and still refuses."""
     _need_card()
     q, k, v = _attn_inputs(1, 64, 64, 4, 2, 64, torch.bfloat16)
     x, cols, wts = _inputs(50, 16, 8, 16)
-    before = (flash_attention.launches, ell_spmm.launches)
-    with pytest.raises(NotImplementedError, match="impl='ref'"):
-        flash_attention(q.requires_grad_(), k, v)
+    q.requires_grad_()
+    before = (flash_attention.launches, flash_attention_bwd.launches, ell_spmm.launches)
+    out = flash_attention(q, k, v)
+    (dq,) = torch.autograd.grad(out.float().sum(), q)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert dq.shape == q.shape and dq.dtype == q.dtype and bool(torch.isfinite(dq.float()).all())
     with pytest.raises(NotImplementedError, match="impl='ref'"):
         ell_spmm(x.requires_grad_(), cols, wts)
-    assert (flash_attention.launches, ell_spmm.launches) == before
+    assert ell_spmm.launches == before[2]
     with torch.no_grad():
-        assert flash_attention(q, k, v).shape == q.shape
         assert ell_spmm(x, cols, wts).shape == (16, 16)
+
+
+# ------------------------------------------------------------ attention backward
+
+ATTN_BWD_SHAPES = [(2, 128, 128, 4, 4, 64), (1, 96, 160, 6, 2, 32), (2, 77, 77, 24, 8, 128),
+                   (1, 200, 328, 8, 2, 128), (1, 64, 64, 8, 2, 128), (3, 1, 40, 4, 1, 32)]
+
+
+def _bwd_case(b, sq, skv, hq, hkv, dh, dtype, causal, q_offset, seed=0):
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, dh, dtype, seed=seed)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(o.shape).astype(np.float32))
+    return q, k, v, o, do.cuda().to(dtype), lse
+
+
+def _assert_grads_close(got, want, dtype):
+    """float32: within 1e-5 of each gradient's largest magnitude (fp32 sums
+    in another order); bfloat16: within 1e-2 of it (the kernel and the plain
+    version round one fp32 value each to bf16)."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = float(b.float().abs().max()) + 1e-6
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= (1e-5 if dtype == torch.float32 else 1e-2) * scale, (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh", ATTN_BWD_SHAPES)
+def test_attention_backward_matches_plain_version(b, sq, skv, hq, hkv, dh, causal, dtype):
+    """The backward kernel against `flash_attention_bwd_ref` on the forward
+    kernel's output and lse: G = 1, 3 and 4, every head dim, ragged S, the
+    kv rows past the causal edge (q_offset = Skv − Sq); two runs bit-equal;
+    the lse against the plain version's."""
+    _need_card()
+    off = skv - sq if causal else 0
+    q, k, v, o, do, lse = _bwd_case(b, sq, skv, hq, hkv, dh, dtype, causal, off)
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, q_offset=off, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4 if dtype == torch.float32 else 1e-2)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    _assert_grads_close(got, want, dtype)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # one owner a row, no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_offset", [-40, 37])
+def test_attention_backward_offsets_and_fully_masked_rows(q_offset, dtype):
+    """q_offset moves the causal edge; at −40 the first 40 query rows see no
+    key: they add no gradient and no NaN."""
+    _need_card()
+    q, k, v, o, do, lse = _bwd_case(2, 100, 90, 6, 2, 64, dtype, True, q_offset, seed=3)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=True, q_offset=q_offset)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True, q_offset=q_offset)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    _assert_grads_close(got, want, dtype)
+    if q_offset < 0:
+        assert bool((got[0][:, :-q_offset] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_function_gradients_match_autograd_of_the_plain_version(causal):
+    """float32 gradients of the Function (kernels both ways) against autograd
+    through `impl="ref"`, within 1e-5 of each gradient's largest magnitude."""
+    _need_card()
+    q, k, v = (t.requires_grad_(True) for t in _attn_inputs(2, 150, 150, 6, 2, 64, torch.float32, seed=4))
+    do = torch.randn(q.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=causal), (q, k, v), do)
+    want = torch.autograd.grad(flash_attention(q, k, v, causal=causal, impl="ref"), (q, k, v), do)
+    _assert_grads_close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+def test_attention_backward_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    q, k, v, o, do, lse = _bwd_case(1, 64, 64, 4, 2, 64, torch.bfloat16, True, 0)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, v, o, do, lse[:, :2])  # lse of another shape
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, k, v, o, do.float(), lse)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, o, do, lse)
+    with pytest.raises(NotImplementedError, match="kv_valid_len"):
+        flash_attention(q.requires_grad_(), k, v, kv_valid_len=torch.full((1,), 10, device="cuda"))
+    assert flash_attention_bwd.launches == before

@@ -2,6 +2,7 @@
 nothing of `repro`; entry points default to the CUDA device and raise without
 one; a CPU tensor takes the plain version of a kernel and launches nothing."""
 import ast
+import math
 import pathlib
 import subprocess
 import sys
@@ -50,9 +51,9 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/models/gnn.py", "src/repro_torch/graph/sampler.py",
                  "src/repro_torch/configs/gin_tu.py", "src/repro_torch/configs/gat_cora.py",
                  "src/repro_torch/configs/pna.py", "src/repro_torch/configs/graphcast.py",
-                 "tools/gnn_full_scale.py", "tools/gnn_reduce_hub.py"):
+                 "tools/gnn_full_scale.py", "tools/gnn_reduce_hub.py", "tools/lm_train_step.py"):
         assert must in names
-    for cu in ("ell_spmm.cu", "flash_attention.cu", "embedding_bag.cu"):
+    for cu in ("ell_spmm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
 
 
@@ -186,19 +187,37 @@ def test_entry_points_default_to_the_card():
 
 
 def test_gnn_training_waits_for_the_reduce_backward():
-    """The GNN archs are ported (none is pending); their training raises,
-    naming the backward of the ELL reduce (ROADMAP.md Queue B 4)."""
+    """The GNN archs are ported (none is pending) and train: gin-tu, gat-cora
+    and pna for a step on the host (GIN's sum through the ELL reduce, whose
+    backward is the reduce over the transposed ELL), from `train` and from
+    the CLI; graphcast is refused with the reference's message."""
     from repro_torch.configs.registry import PENDING, arch_ids
-    from repro_torch.launch.train import main, train
+    from repro_torch.launch.train import GRAPHCAST_REFUSAL, main, train
 
     assert sorted(arch_ids("gnn")) == ["gat-cora", "gin-tu", "graphcast", "pna"]
     assert not {"gin-tu", "gat-cora", "pna", "graphcast"} & set(PENDING)
     assert set(PENDING) == {"qwen2-moe-a2.7b", "olmoe-1b-7b"}
-    for arch in arch_ids("gnn"):
-        with pytest.raises(NotImplementedError, match="no backward.*Queue B 4"):
-            train(arch, smoke=True, steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="segment_spmm.*Queue B 4"):
-        main(["--arch", "gin-tu", "--smoke", "--device", "cpu", "--steps", "1"])
+    for arch in ("gin-tu", "gat-cora", "pna"):
+        seen = []
+        state = train(arch, smoke=True, steps=1, device="cpu", log_fn=lambda _: None,
+                      on_step=lambda st, m, b: seen.append(float(m["loss"])))
+        assert state.step == 1 and len(seen) == 1 and math.isfinite(seen[0])
+        if arch == "gin-tu":
+            assert _gnn_batch_has_transpose(arch)
+    with pytest.raises(SystemExit, match="graphcast_regression"):
+        train("graphcast", smoke=True, steps=1, device="cpu")
+    assert GRAPHCAST_REFUSAL == "use examples/graphcast_regression.py for graphcast training"
+    main(["--arch", "gin-tu", "--smoke", "--device", "cpu", "--steps", "1"])
+
+
+def _gnn_batch_has_transpose(arch):
+    """The batch `launch.train` builds for `arch` carries the ELL and its transpose."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import _gnn_setup
+
+    *_, batches = _gnn_setup(get_arch(arch), smoke=True, seed=0, device=torch.device("cpu"))
+    ell = next(iter(batches))["ell"]
+    return ell.transpose is not None and ell.transpose.num_nodes == ell.num_nodes
 
 
 def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
@@ -234,20 +253,22 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
 
 
 def test_kernels_without_a_backward_refuse_grad_before_anything_else():
-    """`flash_attention` and `ell_spmm` on the CUDA route would silently
-    detach their output from the graph: with grad on and an input that
-    requires it they raise, before the device check — so this runs on the
-    CPU.  Without grad (or on the plain route) the same call goes on."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    """`ell_spmm` (one bucket) on the CUDA route would silently detach its
+    output from the graph: with grad on and an input that requires it, it
+    raises before the device check — so this runs on the CPU.  Attention and
+    the whole reduce have a backward now: with grad on, `flash_attention`
+    (impl "auto") on a CPU tensor goes through its autograd Function's plain
+    route, and impl "cuda" refuses a CPU tensor as it does without grad."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.segment_spmm.ops import ell_spmm
 
     q = torch.ones((1, 4, 2, 32), requires_grad=True)
     kv = torch.ones((1, 4, 2, 32))
     x = torch.ones((6, 16), requires_grad=True)
     cols = torch.zeros((3, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="impl='ref'.*Queue B 4"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, kv, kv, impl="cuda")
-    with pytest.raises(NotImplementedError, match="impl='ref'.*Queue B 4"):
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
         ell_spmm(x, cols, impl="cuda")
     with pytest.raises(NotImplementedError, match="no backward"):
         ell_spmm(x.detach(), cols, torch.ones((3, 2), requires_grad=True), impl="cuda")
@@ -256,6 +277,10 @@ def test_kernels_without_a_backward_refuse_grad_before_anything_else():
             flash_attention(q, kv, kv, impl="cuda")
         with pytest.raises(ValueError, match="CUDA"):
             ell_spmm(x, cols, impl="cuda")
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(q, kv, kv)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and (flash_attention.launches, flash_attention_bwd.launches) == before
     assert flash_attention(q, kv, kv, impl="ref").requires_grad
     assert ell_spmm(x, cols, impl="ref").requires_grad
 
