@@ -105,7 +105,9 @@ Phases, one JSON line each:
              shapes, f32 and bf16, offsets, rows that see no key, the
              training and serve shapes; two runs bit-equal) and its time at
              the training and serve shapes beside its bound, the plain
-             version and SDPA's backward
+             version and SDPA's backward, each of its three kernels' device
+             time there, the bf16 route's kernels by name and their
+             registers, spills and shared memory
   serve      the serve path, its throughput, and full-width logit checks
   train      the training path: llama3.2-3b's losses (finite, the last below
              the first), step ms of the last 10, tokens/s, peak memory, one
@@ -1344,7 +1346,13 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
     of `scaled_dot_product_attention`."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_ROUTES,
+        bwd_consumer_groups,
+        bwd_kernel_info,
+        bwd_kernel_launches,
+        flash_attention_cuda,
+    )
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -1412,6 +1420,11 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
     for name, (b, s, hq, hkv, dh) in (("train", ATTN_TRAIN_SHAPE), ("serve", (1, ATTN_TIMED_S, 24, 8, 128))):
         q, k, v, o, do, lse, o_ref, lse_ref = case(b, s, s, hq, hkv, dh, torch.bfloat16, True, 0)
         bound, by = attention_bwd_bound_ms(q, k, True, 0)
+        before = bwd_kernel_launches()
+        flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        ran = {n: c - before[n] for n, c in bwd_kernel_launches().items()}
+        check(ran == BWD_BF16_ROUTE, f"bf16 backward at the {name} shape launched {ran}, want {BWD_BF16_ROUTE}")
+        split = kernel_split_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True), ATTN_BWD_GROUPS)
         ms = timer.device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True), calls=5, reps=10)
         # yardstick, used nowhere in the port: the backward of one library call in its own layout
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -1441,6 +1454,9 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
             "library_ms": timer.call_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
                                         calls=5, reps=10),
             "max_rel_err_vs_plain": max(held), "max_rel_err_vs_library": lib_err,
+            "kernels_ms": split if any(split.values()) else "not measured (the profiler saw no kernel)",
+            "kernels_launched_a_call": ran,
+            "consumer_groups": bwd_consumer_groups(b, s, s, hq, hkv),
         }
         del q, k, v, o, do, lse, o_ref, lse_ref, qt, kt, vt, lib_out, lib, ours
         torch.cuda.empty_cache()
@@ -1449,7 +1465,14 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
             "forward_with_lse": {**fwd, "tolerance_lse": LSE_TOL, "lse_no_key_at_most": LSE_NO_KEY,
                                  "tolerance_o_f32": F32_TOL, "tolerance_o_bf16": BF16_TOL},
             "rows_that_see_no_key_add_nothing": True, "timed": timed,
+            "route_bf16": BWD_ROUTES[torch.bfloat16], "route_f32": BWD_ROUTES[torch.float32],
+            "kernel_resources": {"dkdv_dh128": bwd_kernel_info(128, 2, "dkdv"),
+                                 **{f"dq_dh128_q{64 * nc}": bwd_kernel_info(128, nc, "dq") for nc in (1, 2)}},
             "timing": "ms: device time replayed from a CUDA graph (one call = the D, dK/dV and dQ kernels); "
+                      "kernels_ms: each kernel's device time a call (torch.profiler, device activity, 5 calls); "
+                      "kernels_launched_a_call: the library's own launch counts over one call; "
+                      "kernel_resources: cudaFuncGetAttributes of the bf16 kernels (registers a thread, "
+                      "local_bytes = spills) at dh 128, dQ at one and two consumer warpgroups; "
                       "call_ms, plain_ms (flash_attention_bwd_ref), library_ms (torch.autograd.grad of "
                       "scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies, its forward "
                       "done once): calls enqueued back to back; max_rel_err_vs_library: largest difference of a "
@@ -1560,6 +1583,12 @@ def phase_attention(device: torch.device, timer: Timer) -> dict:
 
 
 ATTN_GROUPS = {"flash_attention_ms": ("attn_bf16_wgmma",)}
+# the bf16 backward's three kernels (the float32 route's are attn_bwd_dkdv<float, ...>, attn_bwd_dq<...>),
+# and what one bf16 call launches, as the library counts them (`kernel.bwd_kernel_launches`)
+BWD_BF16_ROUTE = {"attn_bwd_delta": 1, "attn_bwd_dkdv_wgmma": 1, "attn_bwd_dq_wgmma": 1, "attn_bwd_dkdv": 0,
+                  "attn_bwd_dq": 0}
+ATTN_BWD_GROUPS = {"delta_ms": ("attn_bwd_delta",), "dkdv_wgmma_ms": ("attn_bwd_dkdv_wgmma",),
+                   "dq_wgmma_ms": ("attn_bwd_dq_wgmma",)}
 
 
 def device_rows(prof) -> list[tuple[float, str, int]]:
@@ -1589,6 +1618,24 @@ def summarize_profile(rows, wall_s: float, groups: dict) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_ms": total, "device_busy_share": total / (wall_s * 1e3),
             **by_group,
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:8]]}
+
+
+def kernel_split_ms(fn, groups: dict, calls: int = 5) -> dict:
+    """Device ms a call of `fn` by kernel group (`groups` maps a key to the
+    kernel-name pieces it sums), from `torch.profiler` with device activity
+    only over `calls` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)), e.key)
+            for e in prof.key_averages()]
+    return {key: sum(us for us, name in rows if any(p in name for p in pieces)) / 1e3 / calls
+            for key, pieces in groups.items()}
 
 
 def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
@@ -1825,6 +1872,7 @@ def phase_train(device: torch.device, seed: int, smi: str | None, timer: Timer) 
     graphcast refused.  The kernels' counts are set to 0 just before and read
     just after; returns the numbers and the counts."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import bwd_kernel_launches
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
     from repro_torch.launch.train import GRAPHCAST_REFUSAL, train
@@ -1837,12 +1885,16 @@ def phase_train(device: torch.device, seed: int, smi: str | None, timer: Timer) 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention_bwd.launches = segment_spmm.launches = 0
+    bwd_before = bwd_kernel_launches()
     t0 = time.perf_counter()
     state = train(LM_TRAIN_ARCH, steps=TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=TRAIN_LR,
                   device=device, seed=seed, on_step=rec, log_fn=log.append)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "flash_attention_bwd": flash_attention_bwd.launches}
+    bwd_kernels = {n: c - bwd_before[n] for n, c in bwd_kernel_launches().items()}
+    check(bwd_kernels == {n: c * launches["flash_attention_bwd"] for n, c in BWD_BF16_ROUTE.items()},
+          f"the backward's kernels on the training path: {bwd_kernels}, want the bf16 wgmma route each call")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = rec.float_losses()
     check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, f"llama trained {state.step} steps")
@@ -1880,6 +1932,7 @@ def phase_train(device: torch.device, seed: int, smi: str | None, timer: Timer) 
         "max_memory_allocated_gb": peak_gb, "profile_one_step": prof,
         "flash_attention_launches_a_step": launches["flash_attention"] / TRAIN_STEPS,
         "flash_attention_bwd_launches_a_step": launches["flash_attention_bwd"] / TRAIN_STEPS,
+        "flash_attention_bwd_kernel_launches": bwd_kernels,
         "log": log,
     }
 
@@ -2493,11 +2546,13 @@ def main() -> int:
         "max_abs_err": attn["backward"]["max_abs_err"],
         "max_rel_err_f32": attn["backward"]["max_rel_err_f32"], "max_rel_err_bf16": attn["backward"]["max_rel_err_bf16"],
         **{k: attn["backward"]["timed"]["train"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                                              "library_ms", "tflops")},
+                                                              "library_ms", "tflops", "kernels_ms")},
         "shape": "llama3.2-3b training attention: q (8, 128, 24, 128), k/v (8, 128, 8, 128) bf16, causal; "
                  "library: the backward of scaled_dot_product_attention",
+        "kernel_route": attn["backward"]["route_bf16"],
+        "kernel_resources": attn["backward"]["kernel_resources"],
         "serve_shape": {k: attn["backward"]["timed"]["serve"][k] for k in (
-            "q", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")},
+            "q", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "kernels_ms")},
     }, {
         "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE, "replaces": BAG_REPLACES,
         "launches": bag_launches,

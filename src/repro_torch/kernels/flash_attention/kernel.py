@@ -18,8 +18,9 @@ import torch
 from repro_torch.kernels.build import launch_on_device, load_library
 from repro_torch.kernels.flash_attention import ops
 
-__all__ = ["LIBRARY", "LIBRARY_BWD", "HEAD_DIMS", "bind_launcher", "flash_attention_cuda",
-           "flash_attention_bwd_cuda", "kernel_info"]
+__all__ = ["LIBRARY", "LIBRARY_BWD", "HEAD_DIMS", "BWD_ROUTES", "BWD_KERNEL_NAMES", "bind_launcher",
+           "flash_attention_cuda", "flash_attention_bwd_cuda", "kernel_info", "bwd_kernel_info",
+           "bwd_kernel_launches", "bwd_consumer_groups"]
 
 LIBRARY = "flash_attention"
 LIBRARY_BWD = "flash_attention_bwd"
@@ -28,6 +29,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 _BWD = None
 _ERRORS = "-1: refused arguments, -2: the driver refused a tensor map of q, k or v"
+_BWD_ERRORS = "-1: refused arguments, -2: the driver refused a tensor map of q, k, v or dout"
+# the backward's kernels by input type, launched in this order on one stream
+BWD_ROUTES = {
+    torch.bfloat16: "attn_bwd_delta + attn_bwd_dkdv_wgmma + attn_bwd_dq_wgmma (wgmma m64nNk16 fed by a TMA ring)",
+    torch.float32: "attn_bwd_delta + attn_bwd_dkdv + attn_bwd_dq (fp32 FMA on the CUDA cores)",
+}
+BWD_KERNELS = {"dkdv": 0, "dq": 1}  # the bf16 kernels, as flash_attention_bwd_kernel_info numbers them
+_ROW_PAD = 64  # the backward's scratch pads each (b, h) row block to a multiple of this
 
 
 def bind_launcher(lib: ctypes.CDLL):
@@ -56,7 +65,7 @@ def _bwd_launcher():
     if _BWD is None:
         fn = load_library(LIBRARY_BWD).flash_attention_bwd_launch
         fn.argtypes = [
-            *([ctypes.c_void_p] * 10),  # q k v o dout lse delta dq dk dv
+            *([ctypes.c_void_p] * 10),  # q k v o dout lse scratch dq dk dv
             *([ctypes.c_int] * 8),  # B Sq Skv Hq Hkv dh causal q_offset
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale dtype stream
         ]
@@ -136,9 +145,12 @@ def flash_attention_bwd_cuda(
     """The gradients (dq, dk, dv) of `flash_attention_cuda(q, k, v)` for the
     output cotangent `dout`, from the forward's output `o` and `lse` (float32
     (B, Hq, Sq)); q, k, v, o, dout of one type and contiguous (the autograd
-    Function makes them so).  One call of the backward library (three
-    launches on the current stream, no synchronisation); the gradients and a
-    (B, Hq, Sq) float32 scratch are the only allocations."""
+    Function makes them so).  One call of the backward library, three
+    launches on the current stream (`BWD_ROUTES[q.dtype]`: for bf16 the
+    `wgmma` kernels, for float32 the FMA kernels), no synchronisation; the
+    gradients and a float32 scratch (2, B, Hq, Sq rounded up to 64) for each
+    row's D and lse are the only allocations.  A refused or failed launch
+    raises."""
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd_cuda takes CUDA tensors; the plain version is "
                          "ref.flash_attention_bwd_ref")
@@ -161,15 +173,15 @@ def flash_attention_bwd_cuda(
         return dq, dk.zero_(), dv.zero_()
     if skv == 0:
         raise ValueError("flash_attention_bwd: no keys (Skv = 0)")
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((2, b, hq, -(-sq // _ROW_PAD) * _ROW_PAD), dtype=torch.float32, device=q.device)
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, skv, hq, hkv, dh, int(bool(causal)), int(q_offset), 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
     )
     err = launch_on_device(_bwd_launcher(), q.device, args)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd: launch failed with CUDA error {err} (-1: refused arguments)")
+        raise RuntimeError(f"flash_attention_bwd: launch failed with CUDA error {err} ({_BWD_ERRORS})")
     ops.flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -183,10 +195,55 @@ def kernel_info(dh: int, consumer_groups: int) -> dict:
     fn = load_library(LIBRARY).flash_attention_kernel_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, *([ctypes.POINTER(ctypes.c_int)] * 4)]
     fn.restype = ctypes.c_int
-    out = [ctypes.c_int(0) for _ in range(4)]
-    err = fn(dh, consumer_groups, *[ctypes.byref(v) for v in out])
+    return _resources(_int_out(fn, dh, consumer_groups, n=4))
+
+
+def _int_out(fn, *args, n: int) -> list[int]:
+    """Call `fn(*args, &o1, .., &on)` on n C ints; raises unless it returns 0."""
+    out = [ctypes.c_int(0) for _ in range(n)]
+    err = fn(*args, *[ctypes.byref(v) for v in out])
     if err != 0:
-        raise RuntimeError(f"flash_attention_kernel_info({dh}, {consumer_groups}) failed with {err}")
-    regs, local, smem, threads = (v.value for v in out)
-    return {"registers_at_launch": regs, "local_bytes": local, "dynamic_smem_bytes": smem,
-            "threads": threads}
+        raise RuntimeError(f"{fn.__name__}{args} failed with {err}")
+    return [v.value for v in out]
+
+
+def _resources(values: list[int]) -> dict:
+    regs, local, smem, threads = values
+    return {"registers_at_launch": regs, "local_bytes": local, "dynamic_smem_bytes": smem, "threads": threads}
+
+
+def bwd_kernel_info(dh: int, consumer_groups: int, kernel: str) -> dict:
+    """Resources of the backward's bf16 kernel `kernel` ("dkdv", two consumer
+    warpgroups; or "dq", 1 or 2) at head dim `dh`, from
+    `cudaFuncGetAttributes`, as `kernel_info` gives the forward's.  Builds the
+    library if it is not built yet."""
+    fn = load_library(LIBRARY_BWD).flash_attention_bwd_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, *([ctypes.POINTER(ctypes.c_int)] * 4)]
+    fn.restype = ctypes.c_int
+    return _resources(_int_out(fn, dh, consumer_groups, BWD_KERNELS[kernel], n=4))
+
+
+BWD_KERNEL_NAMES = ("attn_bwd_delta", "attn_bwd_dkdv_wgmma", "attn_bwd_dq_wgmma", "attn_bwd_dkdv", "attn_bwd_dq")
+
+
+def bwd_kernel_launches() -> dict:
+    """Launches of each backward kernel (`BWD_KERNEL_NAMES`; the last two are
+    the float32 route's) since the library was loaded, counted by the library
+    where it launches them: which route the calls took, without a profiler."""
+    fn = load_library(LIBRARY_BWD).flash_attention_bwd_kernel_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * len(BWD_KERNEL_NAMES))()
+    fn(out)
+    return dict(zip(BWD_KERNEL_NAMES, out))
+
+
+def bwd_consumer_groups(b: int, sq: int, skv: int, hq: int, hkv: int) -> dict:
+    """Consumer warpgroups a block that a bf16 backward of this shape gives
+    its dK/dV kernel (always 2, split by role) and its dQ kernel (2 when that
+    still puts a block on every SM, else 1)."""
+    fn = load_library(LIBRARY_BWD).flash_attention_bwd_groups
+    fn.argtypes = [*([ctypes.c_int] * 5), *([ctypes.POINTER(ctypes.c_int)] * 2)]
+    fn.restype = ctypes.c_int
+    dkdv, dq = _int_out(fn, b, sq, skv, hq, hkv, n=2)
+    return {"dkdv": dkdv, "dq": dq}

@@ -13,8 +13,9 @@ versions for a CPU tensor.
   impl="ref"   → the blocked plain version `ref.flash_attention_ref`, which
                  autograd differentiates (the tests' oracle)
   impl="naive" → the unblocked plain version (small shapes only)
-`flash_attention_bwd` is the backward: the kernel `csrc/flash_attention_bwd.cu`
-for a CUDA tensor (the TPU kernel had none; the reference differentiates its
+`flash_attention_bwd` is the backward: the kernels of `csrc/flash_attention_bwd.cu`
+for a CUDA tensor (bf16: `wgmma` on the tensor cores; float32: fp32 products
+on the CUDA cores; the TPU kernel had none, the reference differentiates its
 attention by autodiff), `ref.flash_attention_bwd_ref` for a CPU tensor.
 Nothing here catches a failure and falls back.  `flash_attention.launches`
 and `flash_attention_bwd.launches` count kernel launches (plain integers);

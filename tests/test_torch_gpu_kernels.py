@@ -519,3 +519,95 @@ def test_attention_backward_refuses_what_the_kernel_does_not_take():
     with pytest.raises(NotImplementedError, match="kv_valid_len"):
         flash_attention(q.requires_grad_(), k, v, kv_valid_len=torch.full((1,), 10, device="cuda"))
     assert flash_attention_bwd.launches == before
+
+
+# ------------------------------------------------------------ the bf16 wgmma backward
+
+# (causal, q_offset): None is Skv − Sq, the causal edge at the last key
+WGMMA_BWD_MASKS = [(False, 0), (True, None), (True, -40), (True, 37)]
+
+
+def _rows_that_see_no_key(sq, causal, q_offset):
+    return max(0, min(sq, -q_offset)) if causal else 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,q_offset", WGMMA_BWD_MASKS)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_wgmma_backward_matches_plain_version(g, dh, causal, q_offset):
+    """The bf16 route (`attn_bwd_dkdv_wgmma`, `attn_bwd_dq_wgmma`) against
+    `flash_attention_bwd_ref` on the same forward: G = 1, 3, 4, every head
+    dim, Sq ≠ Skv and neither a multiple of 64, causal and not, the causal
+    edge moved by q_offset −40 (40 rows see no key: zero dQ, no NaN) and 37;
+    within 1e-2 of each gradient's largest magnitude; two runs bit-equal."""
+    _need_card()
+    b, sq, skv, hkv = 2, 77, 131, 2
+    off = skv - sq if q_offset is None else q_offset
+    q, k, v, o, do, lse = _bwd_case(b, sq, skv, g * hkv, hkv, dh, torch.bfloat16, causal, off, seed=g + dh)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    _assert_grads_close(got, want, torch.bfloat16)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # one owner a row, no atomics
+    blind = _rows_that_see_no_key(sq, causal, off)
+    assert bool((got[0][:, :blind] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_backward_with_two_consumer_warpgroups(causal):
+    """A shape large enough that the dQ kernel takes 128-row tiles (two
+    consumer warpgroups a block), ragged at both ends."""
+    _need_card()
+    from repro_torch.kernels.flash_attention.kernel import bwd_consumer_groups
+
+    b, sq, skv, hq, hkv, dh = 2, 1000, 1100, 24, 8, 128
+    assert bwd_consumer_groups(b, sq, skv, hq, hkv) == {"dkdv": 2, "dq": 2}
+    off = skv - sq if causal else 0
+    q, k, v, o, do, lse = _bwd_case(b, sq, skv, hq, hkv, dh, torch.bfloat16, causal, off, seed=5)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    _assert_grads_close(got, want, torch.bfloat16)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, q_offset=off)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_bf16_backward_runs_the_wgmma_kernels():
+    """A bf16 call runs the delta kernel and the two wgmma kernels and no FMA
+    kernel, a float32 call the FMA kernels: by the library's own launch
+    counts and by the profiler's kernel names.  Both are held to 168 registers
+    a thread by their 9 or 10 warps an SM: the dK/dV kernel spills nothing,
+    the dQ kernel nothing below dh = 128 and at most 32 bytes a thread at
+    128."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.kernel import bwd_kernel_info, bwd_kernel_launches
+
+    def kernel_names(dtype):
+        q, k, v, o, do, lse = _bwd_case(1, 128, 128, 4, 2, 64, dtype, True, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            before = bwd_kernel_launches()
+            flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+            counted = {n: c - before[n] for n, c in bwd_kernel_launches().items()}
+            torch.cuda.synchronize()
+        wgmma = dtype == torch.bfloat16
+        assert counted == {"attn_bwd_delta": 1, "attn_bwd_dkdv_wgmma": int(wgmma), "attn_bwd_dq_wgmma": int(wgmma),
+                           "attn_bwd_dkdv": int(not wgmma), "attn_bwd_dq": int(not wgmma)}, counted
+        return {e.key for e in prof.key_averages() if "attn_bwd" in e.key}
+
+    bf16 = kernel_names(torch.bfloat16)
+    assert any("attn_bwd_dkdv_wgmma" in n for n in bf16) and any("attn_bwd_dq_wgmma" in n for n in bf16)
+    assert not any("attn_bwd_dkdv<" in n or "attn_bwd_dq<" in n for n in bf16), bf16
+    f32 = kernel_names(torch.float32)
+    assert not any("wgmma" in n for n in f32) and any("attn_bwd_dq<" in n for n in f32), f32
+    for dh in (32, 64, 128):
+        for kernel, nc in (("dkdv", 2), ("dq", 1), ("dq", 2)):
+            spill = bwd_kernel_info(dh, nc, kernel)["local_bytes"]
+            assert spill <= (32 if (kernel, dh) == ("dq", 128) else 0), (dh, nc, kernel, spill)
