@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five paths, each driven with its kernels' launch counts set to 0 just before
+Six paths, each driven with its kernels' launch counts set to 0 just before
 and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -55,7 +55,15 @@ and read just after (the paper pipeline once more through its CLI):
   top-100) through `models.recsys`, then `train_batch` (65,536) for 20 steps
   through `launch.train.train`, the code path of `python -m
   repro_torch.launch.train --arch dcn-v2 --batch 65536`; its kernel is
-  `embedding_bag` (every forward and every training step).
+  `embedding_bag` (every forward and every training step);
+* MoE serving: `build_engine` on olmoe-1b-7b at its published width and
+  depth (16 layers, d_model 2048, 16/16 heads, 64 experts top-8 of width
+  1024, vocab 50304; random weights, bf16 over a float32 master) with the
+  LM serving path's traffic, then qwen2-moe-a2.7b at its published width (60
+  experts top-4 of width 1408, a 5632-wide shared expert with its sigmoid
+  gate, vocab 151936) over 4 of its 24 layers, one prompt of 2048 tokens and
+  8 decode steps; experts `impl="local"` (sort, scatter, `torch.bmm`,
+  combine); its kernel is `flash_attention` (every prefill layer).
 
 Phases, one JSON line each:
 
@@ -128,6 +136,18 @@ Phases, one JSON line each:
              training steps against the same 20 through the plain route:
              table rows never looked up only decayed, looked-up rows changed
              (the same rows in both routes)
+  moe        the attention kernel at olmoe's prefill shape (16 query and 16
+             kv heads) against its plain version; olmoe-1b-7b and the cut
+             qwen2-moe-a2.7b through the serve path: requests drained,
+             attention launches, float32 and bf16 logits against the float32
+             model, `moe_block` against the plain per-expert loop
+             `moe_loop_ref` on one layer (float32: kept slots equal), two
+             prefills bit-equal; prefill tokens/s, decode ms a step, peak
+             memory, C and the dropped share of each prefill, the expert
+             load skew of each layer, the device split of a prefill and of a
+             decode step (router, dispatch, experts, combine, attention, the
+             rest) and the decode step's byte bound with every expert read
+             and with only the experts hit
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -1657,13 +1677,133 @@ def profile_window(fn, groups: dict = ATTN_GROUPS) -> dict:
     return summarize_profile(device_rows(prof), wall, groups)
 
 
+def drain_timed(engine, prompts, new_tokens: int, route_logs: dict | None = None):
+    """Submit `prompts` and drain `engine`, every prefill and decode call timed
+    on the host clock (synchronised on both sides) and its logits checked
+    finite; `flash_attention.launches` counts from 0 over the drain.  With
+    `route_logs` ({"prefill": [], "decode": []}) each call appends the list
+    of its MoE routings (`moe_block.route_log`) there.  Returns (done,
+    stats, wall_s, launches)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.moe import moe_block
+    from repro_torch.serve.engine import Request
+
+    prefill_one, decode = engine.prefill_one, engine.decode
+    st = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0, "decode_tokens": 0, "decode_steps": 0,
+          "finite": True}
+
+    def timed(kind, fn, *args):
+        if route_logs is not None:
+            route_logs[kind].append([])
+            moe_block.route_log = route_logs[kind][-1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            out = fn(*args)
+            torch.cuda.synchronize()
+        finally:
+            moe_block.route_log = None
+        st[f"{kind}_s"] += time.perf_counter() - t
+        return out
+
+    def timed_prefill(cache, slot, tokens):
+        cache, logits = timed("prefill", prefill_one, cache, slot, tokens)
+        st["prefill_tokens"] += int(tokens.shape[1])
+        st["finite"] &= bool(torch.isfinite(logits).all())
+        return cache, logits
+
+    def timed_decode(cache, tokens, pos):
+        live = sum(a is not None for a in engine.active)
+        logits, cache = timed("decode", decode, cache, tokens, pos)
+        st["decode_tokens"] += live
+        st["decode_steps"] += 1
+        st["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    engine.prefill_one, engine.decode = timed_prefill, timed_decode
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+    flash_attention.launches = 0  # the path's own count starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        engine.prefill_one, engine.decode = prefill_one, decode
+    return done, st, time.perf_counter() - t0, flash_attention.launches
+
+
+def logit_checks(cfg, params32: dict, params: dict, toks: torch.Tensor, device: torch.device) -> dict:
+    """Full-width logit checks on one prompt `toks` (1, n), each route in a
+    one-slot cache of its own: the float32 model through the kernel (prefill,
+    and prefill of n - 1 then one decode step) within MODEL_TOL of the float32
+    model through the plain attention (the truth); the bf16 model's kernel
+    route and decode no further from the truth than its plain route, by
+    BF16_ROUTE_FACTOR (mean abs error).  With MoE layers decode is held to a
+    truth of its own (the float32 model, plain prefill of n - 1, one decode
+    step) beside the bf16 plain route's decode: the prefill's capacity, from
+    n tokens, may drop the last token's slots where one decode step's (C = 8)
+    drops none, so decode and prefill differ by design.  Raises on a failure."""
+    from repro_torch.models import transformer as tfm
+
+    n = toks.shape[1]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def last(c, prm, impl="auto", decode_last=False):
+        c = dataclasses.replace(c, attn_impl=impl)
+        cache = tfm.init_kv_cache(c, 1, n, dtype=torch.float32, device=device)
+        if not decode_last:
+            return tfm.prefill(prm, toks, cache, c)[0].float()
+        tfm.prefill(prm, toks[:, :-1], cache, c)
+        return tfm.decode_step_batched_pos(prm, cache, torch.full((1,), n - 1, device=device), toks[:, -1:], c)[0].float()
+
+    truth = last(cfg32, params32, "ref")  # float32 activations, plain attention
+    k32, d32 = last(cfg32, params32), last(cfg32, params32, decode_last=True)
+    kb, rb, db = last(cfg, params), last(cfg, params, "ref"), last(cfg, params, decode_last=True)
+    if cfg.moe is not None:
+        truth_d, rbd = last(cfg32, params32, "ref", decode_last=True), last(cfg, params, "ref", decode_last=True)
+    else:
+        truth_d, rbd = truth, rb
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a - b).abs().max()), float((a - b).abs().mean())
+
+    checks = {
+        "prompt_tokens": n, "truth": "float32 activations, impl='ref'", "truth_std": float(truth.std()),
+        "f32_kernel_vs_ref": err(k32, truth), "f32_decode_vs_prefill": err(d32, k32),
+        "bf16_kernel_vs_truth": err(kb, truth), "bf16_ref_vs_truth": err(rb, truth),
+        "bf16_decode_vs_truth": err(db, truth), "bf16_kernel_vs_ref": err(kb, rb),
+        "bf16_kernel_vs_ref_within_one_op_tolerance": float(
+            torch.isclose(kb, rb, **BF16_TOL).float().mean()),
+        "argmax_equal_kernel_ref_truth": [int(kb.argmax()), int(rb.argmax()), int(truth.argmax())],
+        "tolerance_f32": MODEL_TOL, "bf16_route_factor": BF16_ROUTE_FACTOR, "errors": "[max abs, mean abs]",
+    }
+    check(torch.allclose(k32, truth, **MODEL_TOL), f"f32 logits, kernel vs ref: {checks['f32_kernel_vs_ref']}")
+    floor = checks["bf16_ref_vs_truth"][1]
+    check(checks["bf16_kernel_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
+          f"bf16 logits, kernel route less accurate than the plain route: {checks}")
+    if cfg.moe is None:
+        check(torch.allclose(d32, k32, **MODEL_TOL),
+              f"f32 logits, decode vs prefill: {checks['f32_decode_vs_prefill']}")
+        check(checks["bf16_decode_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
+              f"bf16 logits, decode less accurate than the plain prefill: {checks}")
+        return checks
+    checks.update({"decode_truth": "float32 activations, impl='ref' prefill of n - 1, one decode step",
+                   "f32_decode_vs_decode_truth": err(d32, truth_d), "bf16_decode_vs_decode_truth": err(db, truth_d),
+                   "bf16_ref_decode_vs_decode_truth": err(rbd, truth_d)})
+    check(torch.allclose(d32, truth_d, **MODEL_TOL), f"f32 logits, decode vs its truth: {checks}")
+    check(checks["bf16_decode_vs_decode_truth"][1] <= BF16_ROUTE_FACTOR * checks["bf16_ref_decode_vs_decode_truth"][1],
+          f"bf16 logits, decode less accurate than the plain route's decode: {checks}")
+    return checks
+
+
 def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict, int]:
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import gqa_attention
-    from repro_torch.serve.engine import Request
 
     cfg = get_arch(SERVE_ARCH).model_config()
     torch.cuda.reset_peak_memory_stats()
@@ -1687,41 +1827,7 @@ def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict,
                              torch.zeros(SERVE_SLOTS, dtype=torch.long))
     torch.cuda.synchronize()
 
-    st = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0, "decode_tokens": 0, "decode_steps": 0,
-          "finite": True}
-
-    def timed_prefill(cache, slot, tokens):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        cache, logits = prefill_one(cache, slot, tokens)
-        torch.cuda.synchronize()
-        st["prefill_s"] += time.perf_counter() - t
-        st["prefill_tokens"] += int(tokens.shape[1])
-        st["finite"] &= bool(torch.isfinite(logits).all())
-        return cache, logits
-
-    def timed_decode(cache, tokens, pos):
-        live = sum(a is not None for a in engine.active)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits, cache = decode(cache, tokens, pos)
-        torch.cuda.synchronize()
-        st["decode_s"] += time.perf_counter() - t
-        st["decode_tokens"] += live
-        st["decode_steps"] += 1
-        st["finite"] &= bool(torch.isfinite(logits).all())
-        return logits, cache
-
-    engine.prefill_one, engine.decode = timed_prefill, timed_decode
-    for i, p in enumerate(prompts):
-        engine.submit(Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW))
-    flash_attention.launches = 0  # the serve path's own count starts here
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = flash_attention.launches
+    done, st, wall_s, launches = drain_timed(engine, prompts, SERVE_NEW)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(len(done) == SERVE_REQUESTS, f"{len(done)} of {SERVE_REQUESTS} requests drained")
@@ -1732,45 +1838,10 @@ def phase_serve(device: torch.device, seed: int, smi: str | None) -> tuple[dict,
           f"want {cfg.n_layers} a prefill × {SERVE_REQUESTS}")
     check(st["finite"], "non-finite logits")
 
-    # full-width logit checks on request 0's prompt, each in a one-slot cache of its own
+    # full-width logit checks on request 0's prompt
     toks = torch.from_numpy(prompts[0][None, :].astype(np.int64)).to(device)
-    n = toks.shape[1]
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-
-    def last(c, prm, impl="auto", decode_last=False):
-        c = dataclasses.replace(c, attn_impl=impl)
-        cache = tfm.init_kv_cache(c, 1, n, dtype=torch.float32, device=device)
-        if not decode_last:
-            return tfm.prefill(prm, toks, cache, c)[0].float()
-        tfm.prefill(prm, toks[:, :-1], cache, c)
-        return tfm.decode_step_batched_pos(prm, cache, torch.full((1,), n - 1, device=device), toks[:, -1:], c)[0].float()
-
-    truth = last(cfg32, params32, "ref")  # float32 activations, plain attention
-    k32, d32 = last(cfg32, params32), last(cfg32, params32, decode_last=True)
-    kb, rb, db = last(cfg, params), last(cfg, params, "ref"), last(cfg, params, decode_last=True)
-    torch.cuda.synchronize()
-
-    def err(a, b):
-        return float((a - b).abs().max()), float((a - b).abs().mean())
-
-    checks = {
-        "prompt_tokens": n, "truth": "float32 activations, impl='ref'", "truth_std": float(truth.std()),
-        "f32_kernel_vs_ref": err(k32, truth), "f32_decode_vs_prefill": err(d32, k32),
-        "bf16_kernel_vs_truth": err(kb, truth), "bf16_ref_vs_truth": err(rb, truth),
-        "bf16_decode_vs_truth": err(db, truth), "bf16_kernel_vs_ref": err(kb, rb),
-        "bf16_kernel_vs_ref_within_one_op_tolerance": float(
-            torch.isclose(kb, rb, **BF16_TOL).float().mean()),
-        "argmax_equal_kernel_ref_truth": [int(kb.argmax()), int(rb.argmax()), int(truth.argmax())],
-        "first_token_engine": done[[r.uid for r in done].index(0)].out_tokens[0],
-        "tolerance_f32": MODEL_TOL, "bf16_route_factor": BF16_ROUTE_FACTOR, "errors": "[max abs, mean abs]",
-    }
-    check(torch.allclose(k32, truth, **MODEL_TOL), f"f32 logits, kernel vs ref: {checks['f32_kernel_vs_ref']}")
-    check(torch.allclose(d32, k32, **MODEL_TOL), f"f32 logits, decode vs prefill: {checks['f32_decode_vs_prefill']}")
-    floor = checks["bf16_ref_vs_truth"][1]
-    check(checks["bf16_kernel_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
-          f"bf16 logits, kernel route less accurate than the plain route: {checks}")
-    check(checks["bf16_decode_vs_truth"][1] <= BF16_ROUTE_FACTOR * floor,
-          f"bf16 logits, decode less accurate than the plain prefill: {checks}")
+    checks = logit_checks(cfg, params32, params, toks, device)
+    checks["first_token_engine"] = done[[r.uid for r in done].index(0)].out_tokens[0]
     del params32
 
     # where the time goes: one prefill (request 0's prompt, slot 0) and 8 decode steps
@@ -2440,6 +2511,304 @@ def phase_cli(smi: str | None) -> tuple[dict, int]:
     return out, total
 
 
+# --------------------------------------------------------------------------- MoE serving
+
+# olmoe-1b-7b at its published width and depth through the serve path, with the serve phase's traffic; then
+# qwen2-moe-a2.7b at its published width over 4 of its 24 layers (at full depth its float32 master and bf16
+# copy, 57.3 + 28.6 GB, do not fit on the card), one prompt of 2048 tokens and 8 decode steps
+MOE_ARCH = "olmoe-1b-7b"
+MOE_WIDE_ARCH, MOE_WIDE_LAYERS = "qwen2-moe-a2.7b", 4
+MOE_WIDE_PROMPT, MOE_WIDE_STEPS = 2048, 8
+# moe_block against moe_loop_ref on one layer at full width in float32: the same slots kept, outputs through
+# float32 products of width 2048 (and 1024 back) in other shapes (one (E, C, D) bmm against an expert's rows
+# at a time), each free to take another cuBLAS algorithm; tests/test_torch_moe.py's 1e-5 (at widths <= 128)
+# is reported beside
+MOE_LOOP_TOL = dict(rtol=1e-4, atol=1e-4)
+MOE_TEST_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def moe_layer_input(run, layer: int) -> tuple[dict, torch.Tensor]:
+    """(weights, input) of the MoE block of layer `layer` during `run()`: the
+    transformer's reference to `models.moe` is swapped for the call, so the
+    block itself runs as it is."""
+    import types
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+
+    seen = []
+
+    def grab(m, lp, x):
+        if len(seen) <= layer:
+            seen.append((lp, x.clone()) if len(seen) == layer else None)
+        return moe_lib.moe_block(m, lp, x)
+
+    tfm.moe_lib = types.SimpleNamespace(moe_block=grab)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        tfm.moe_lib = moe_lib
+    return seen[layer]
+
+
+def moe_loop_check(m, lp: dict, x: torch.Tensor) -> dict:
+    """`moe_block` against `moe_loop_ref` on one layer's weights and input:
+    the kept slots equal, the outputs within MOE_LOOP_TOL, two runs bit-equal."""
+    from repro_torch.models import moe as moe_lib
+
+    got, again = moe_lib.moe_block(m, lp, x), moe_lib.moe_block(m, lp, x)
+    want, kept = moe_lib.moe_loop_ref(m, lp, x)
+    _, top_i, _ = moe_lib._router(m, lp, x.reshape(-1, x.shape[-1]))
+    plan = moe_lib._plan(m, top_i)
+    kept_sort = torch.zeros_like(kept.view(-1)).index_copy_(0, plan.order, plan.keep).view(kept.shape)
+    torch.cuda.synchronize()
+    out = {"dtype": str(x.dtype).split(".")[-1], "tokens": x.shape[0] * x.shape[1], "C": plan.C,
+           "kept_slots_equal": bool(torch.equal(kept, kept_sort)), "slots_dropped": int((~kept).sum()),
+           "max_abs_err": float((got - want).abs().max()), "out_max_abs": float(want.abs().max()),
+           "within_tolerance": bool(torch.allclose(got, want, **MOE_LOOP_TOL)), "tolerance": MOE_LOOP_TOL,
+           "within_test_tolerance": bool(torch.allclose(got, want, **MOE_TEST_TOL)),
+           "bit_equal_two_runs": bool(torch.equal(got, again))}
+    check(out["kept_slots_equal"], f"moe_block and moe_loop_ref keep other slots: {out}")
+    check(out["within_tolerance"], f"moe_block vs moe_loop_ref: {out}")
+    check(out["bit_equal_two_runs"], "two runs of moe_block differ")
+    return out
+
+
+def moe_routes(calls: list, m, n_layers: int) -> dict:
+    """From `drain_timed`'s route logs (a list of routings a call, one a
+    layer): each call's C, tokens and share of routed slots dropped, the
+    experts that got a slot (summed over layers, mean over calls), and the
+    expert load skew (max/mean of the slots an expert got) of each layer over
+    all calls."""
+    per_call, total = [], torch.zeros((n_layers, m.num_experts), dtype=torch.long)
+    hit = 0.0
+    for routings in calls:
+        check(len(routings) == n_layers, f"{len(routings)} routings in a call of {n_layers} layers")
+        C = routings[0][0]
+        counts = torch.stack([c for _, c in routings]).cpu()  # (L, E)
+        slots = int(counts[0].sum())
+        per_call.append({"C": C, "tokens": slots // m.top_k,
+                         "dropped_share": int((counts - C).clamp_min(0).sum()) / (slots * n_layers)})
+        hit += int((counts > 0).sum()) / len(calls)
+        total += counts
+    skew = total.max(1).values.float() / (total.sum(1).float() / m.num_experts)
+    return {"calls": per_call, "experts_hit_a_call": hit, "skew_by_layer": [round(float(s), 4) for s in skew],
+            "skew_max": float(skew.max())}
+
+
+def moe_decode_bytes(cfg, experts_hit: float, pos: np.ndarray) -> dict:
+    """Bytes one decode step of `len(pos)` slots must move (bf16 weights, the
+    float32 router, cache rows read up to each slot's position and written
+    at it, logits out) over the memory rate: with every expert's weights
+    read, as the dense (E, C, D) product does, and with only the
+    `experts_hit` experts (summed over layers) that got a slot."""
+    m, d, L, dh = cfg.moe, cfg.d_model, cfg.n_layers, cfg.head_dim
+    b = len(pos)
+    expert = 3 * d * m.d_ff_expert * 2
+    other = L * (d * dh * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * dh * d) * 2  # attention weights
+    other += L * (3 * d * m.d_ff_shared + (d if m.d_ff_shared else 0)) * 2  # shared expert and its gate
+    other += L * d * m.num_experts * 4 + (2 * L + 1) * d * 2 + d * cfg.vocab * 2  # router, norms, head
+    other += b * d * 2 + b * cfg.vocab * 2  # embedding rows in, logits out
+    other += 2 * L * cfg.n_kv_heads * dh * 4 * (int((pos + 1).sum()) + b)  # float32 cache: read, write
+    dense, hit = L * m.num_experts * expert, experts_hit * expert
+    return {"expert_bytes_dense": dense, "expert_bytes_hit": hit, "other_bytes": other,
+            "bound_ms_dense": (dense + other) / H100_BYTES_PER_S * 1e3,
+            "bound_ms_hit_only": (hit + other) / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def moe_split(m, lp: dict, x: torch.Tensor, attention, timer: Timer, n_layers: int, total_ms: float) -> dict:
+    """Device ms of one call by part, each part replayed alone from a CUDA
+    graph on one layer's weights and input and counted once a layer: router
+    and top-k, dispatch (sort and scatter), expert products, combine, the
+    shared expert, attention (`attention()`); the rest is `total_ms` (the
+    whole call's device time, from `torch.profiler`) less those."""
+    from repro_torch.models import moe as moe_lib
+
+    flat = x.reshape(-1, x.shape[-1])
+    top_p, top_i, _ = moe_lib._router(m, lp, flat)
+    plan = moe_lib._plan(m, top_i)
+    buf = moe_lib._dispatch(m, plan, flat)
+    y = moe_lib._expert_ffn(lp["we_gate"], lp["we_up"], lp["we_down"], buf)
+    parts = {
+        "router_topk_ms": lambda: moe_lib._router(m, lp, flat),
+        "dispatch_ms": lambda: moe_lib._dispatch(m, moe_lib._plan(m, top_i), flat),
+        "experts_ms": lambda: moe_lib._expert_ffn(lp["we_gate"], lp["we_up"], lp["we_down"], buf),
+        "combine_ms": lambda: moe_lib._combine(m, plan, y, top_p),
+        "attention_ms": attention,
+    }
+    if m.d_ff_shared:
+        parts["shared_expert_ms"] = lambda: moe_lib._shared_expert(lp, x)
+    out = {k: timer.device_ms(fn, calls=5, reps=10) * n_layers for k, fn in parts.items()}
+    out["total_ms"] = total_ms
+    out["rest_ms"] = total_ms - sum(out[k] for k in parts) if total_ms > 0 else "not measured"
+    return out
+
+
+def moe_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, timer: Timer) -> dict:
+    """One MoE model through `build_engine` (4 slots, max_seq 4096, float32
+    cache): the drain and its checks, the logit checks, `moe_block` against
+    `moe_loop_ref` on the middle layer in float32, two bf16 prefills
+    bit-equal, routing statistics, the device split of a prefill and of a
+    decode step, the decode step's byte bound."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import gqa_attention
+
+    m, L = cfg.moe, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = tfm.init_params(cfg, seed, device=device)  # a seeded torch.Generator on the card
+    params = tfm.cast_params(params32, cfg)  # bf16 weights, the router kept in float32
+    engine = build_engine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(params["layers"]["router"].dtype == torch.float32 and params["layers"]["we_gate"].dtype == torch.bfloat16,
+          "the served weights: bf16 experts, float32 router")
+
+    prefill_one, decode = engine.prefill_one, engine.decode
+    engine.cache, _ = prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
+    _, engine.cache = decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
+                             torch.zeros(SERVE_SLOTS, dtype=torch.long))
+    torch.cuda.synchronize()
+
+    logs = {"prefill": [], "decode": []}
+    done, st, wall_s, launches = drain_timed(engine, prompts, new_tokens, logs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} requests drained")
+    for r in done:
+        check(len(r.out_tokens) == new_tokens or r.out_tokens[-1] == engine.eos_id,
+              f"request {r.uid}: {len(r.out_tokens)} tokens")
+    check(launches == L * len(prompts), f"flash_attention launched {launches} times, want {L} a prefill × "
+          f"{len(prompts)}")
+    check(st["finite"], "non-finite logits")
+    prefill_routes, decode_routes = moe_routes(logs["prefill"], m, L), moe_routes(logs["decode"], m, L)
+    check(all(c["dropped_share"] == 0 for c in decode_routes["calls"]), "a decode step dropped a slot")
+
+    toks = torch.from_numpy(prompts[0][None, :].astype(np.int64)).to(device)
+    n, layer = toks.shape[1], L // 2
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def one_prefill(c, prm):
+        cache = tfm.init_kv_cache(c, 1, n, dtype=torch.float32, device=device)
+        return tfm.prefill(prm, toks, cache, c)[0], cache
+
+    loop_f32 = moe_loop_check(m, *moe_layer_input(lambda: one_prefill(cfg32, params32), layer))
+    checks = logit_checks(cfg, params32, params, toks, device)
+    checks["first_token_engine"] = done[[r.uid for r in done].index(0)].out_tokens[0]
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    (la, ca), (lb, cb) = one_prefill(cfg, params), one_prefill(cfg, params)
+    bit_equal = bool(torch.equal(la, lb) and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]))
+    check(bit_equal, "two bf16 prefills of one prompt differ")
+    del ca, cb
+
+    # where the time goes: request 0's prompt in slot 0, and decode steps at the drained engine's positions
+    lp, x = moe_layer_input(lambda: one_prefill(cfg, params), layer)
+    prof_prefill = profile_window(lambda: prefill_one(engine.cache, 0, toks))
+    q = torch.randn((1, n, cfg.n_heads, cfg.head_dim), device=device).bfloat16()
+    kv = torch.randn((1, n, cfg.n_kv_heads, cfg.head_dim), device=device).bfloat16()
+    split_prefill = moe_split(m, lp, x, lambda: causal_attention(q, kv, kv), timer, L, prof_prefill["device_ms"])
+    pos = torch.from_numpy(engine.pos.astype(np.int64)).to(device)
+    step_tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=device)
+    lpd, xd = moe_layer_input(lambda: decode(engine.cache, step_tokens, pos), layer)
+
+    def eight_steps():
+        for _ in range(8):
+            decode(engine.cache, step_tokens, pos)
+
+    prof_decode = profile_window(eight_steps)
+    qd = torch.randn((SERVE_SLOTS, 1, cfg.n_heads, cfg.head_dim), device=device).bfloat16()
+    ck, cv = engine.cache["k"][0], engine.cache["v"][0]
+    split_decode = moe_split(m, lpd, xd, lambda: gqa_attention(qd, ck, cv, causal=False, kv_valid_len=pos + 1),
+                             timer, L, prof_decode["device_ms"] / 8)
+    decode_bytes = moe_decode_bytes(cfg, decode_routes["experts_hit_a_call"], engine.pos)
+    decode_routes = {k: v for k, v in decode_routes.items() if k != "calls"} | {
+        "C": sorted({c["C"] for c in decode_routes["calls"]}),
+        "dropped_share_max": max(c["dropped_share"] for c in decode_routes["calls"])}
+    del engine, params, lp, x, lpd, xd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": L, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab, "experts": m.num_experts, "top_k": m.top_k,
+        "d_ff_expert": m.d_ff_expert, "d_ff_shared": m.d_ff_shared, "norm_topk": m.norm_topk,
+        "capacity_factor": m.capacity_factor, "impl": m.impl, "params": cfg.num_params,
+        "active_params": cfg.num_active_params, "activations": "bfloat16", "slots": SERVE_SLOTS,
+        "max_seq": SERVE_MAX_SEQ, "kv_cache": "float32", "requests": len(prompts),
+        "prompt_lengths": [len(p) for p in prompts], "max_new_tokens": new_tokens,
+        "new_tokens": [len(r.out_tokens) for r in sorted(done, key=lambda r: r.uid)],
+        "setup_s": setup_s, "wall_s": wall_s, "prefill_s": st["prefill_s"], "prefill_tokens": st["prefill_tokens"],
+        "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"], "decode_steps": st["decode_steps"],
+        "decode_ms_a_step": st["decode_s"] / st["decode_steps"] * 1e3,
+        "decode_tok_s": st["decode_tokens"] / st["decode_s"], "flash_attention_launches": launches,
+        "max_memory_allocated_gb": peak_gb, "logit_checks": checks, "moe_vs_loop_f32": loop_f32,
+        "prefills_bit_equal": bit_equal, "routes_prefill": prefill_routes, "routes_decode": decode_routes,
+        "split_prefill_ms": split_prefill, "split_decode_step_ms": split_decode, "decode_bytes": decode_bytes,
+        "profile_prefill": prof_prefill, "profile_8_decode_steps": prof_decode,
+    }
+
+
+def causal_attention(q, k, v):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return flash_attention(q, k, v, causal=True)
+
+
+def phase_moe(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """The attention kernel at olmoe's prefill shape against its plain
+    version; olmoe-1b-7b, then qwen2-moe-a2.7b cut to 4 layers, through
+    `moe_serve`.  Returns (the `moe` line, the attention check)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    cfg = get_arch(MOE_ARCH).model_config()
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)  # the serve phase's traffic
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+
+    # the attention kernel at olmoe's prefill shape (group 1: 16 query and 16 kv heads), the longest prompt
+    s = int(lengths.max())
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, cfg.n_heads, cfg.head_dim)).astype(np.float32))
+               .to(device).bfloat16() for _ in range(3))
+    got, again = causal_attention(q, k, v), causal_attention(q, k, v)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, again), "two runs of the attention kernel differ at olmoe's shape")
+    check(torch.allclose(got.float(), want.float(), **BF16_TOL), f"attention kernel vs plain at olmoe's shape: {err}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bound_ms, bound_by = attention_bound_ms(q, k, True, 0)
+    attn = {"shape": f"olmoe-1b-7b prefill attention: q/k/v (1, {s}, {cfg.n_heads}, {cfg.head_dim}) bf16, causal",
+            "max_abs_err": err,
+            "tolerance": BF16_TOL, "bit_equal_two_runs": True,
+            "ms": timer.device_ms(lambda: causal_attention(q, k, v)),
+            "plain_ms": timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=3, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))}
+    del q, k, v, qt, kt, vt, got, again, want
+
+    olmoe = moe_serve(cfg, device, seed, prompts, SERVE_NEW, timer)
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_LAYERS)
+    wide_prompt = [rng.integers(2, wide.vocab, size=MOE_WIDE_PROMPT).astype(np.int32)]
+    qwen = moe_serve(wide, device, seed, wide_prompt, MOE_WIDE_STEPS + 1, timer)
+    out = {"olmoe": olmoe | {"cuts": []},
+           "qwen": qwen | {"cuts": [f"{MOE_WIDE_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers: at full "
+                                    "depth the float32 master (57.3 GB) and bf16 copy (28.6 GB) exceed the card"]},
+           "attention_at_olmoe_shape": attn,
+           "weights": "random, from a seeded torch.Generator on the card; a bf16 served copy of a float32 master",
+           "timing": "host clock around each prefill / decode call, synchronised on both sides; profiles with "
+                     "torch.profiler after the drain; split parts replayed alone from a CUDA graph (device time) "
+                     "on the middle layer's weights and input, counted once a layer",
+           "card": smi}
+    say("moe", **out)
+    return out, attn
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -2501,6 +2870,9 @@ def main() -> int:
     _, train_launches = phase_train(device, args.seed, info["nvidia_smi"], timer)
     bag = phase_bag(device, args.seed, timer)
     _, bag_launches = phase_recsys(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_attn = phase_moe(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -2538,6 +2910,9 @@ def main() -> int:
         "shape": f"llama3.2-3b prefill attention: q (1, {ATTN_TIMED_S}, 24, 128), k/v (1, {ATTN_TIMED_S}, 8, 128) "
                  "bf16, causal",
         "launches_train": train_launches["flash_attention"],
+        "launches_moe": moe["olmoe"]["flash_attention_launches"],
+        "launches_moe_qwen": moe["qwen"]["flash_attention_launches"],
+        "moe_shape": moe_attn,
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "

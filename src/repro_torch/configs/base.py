@@ -1,5 +1,5 @@
-"""Architecture configurations the port can run: the dense LM, GNN and
-recsys parts of `repro.configs.base`.
+"""Architecture configurations the port can run: the LM (dense and MoE), GNN
+and recsys parts of `repro.configs.base`.
 
 An `LmArch`, `GnnArch` or `RecsysArch` knows its published configuration
 (`model_config()`, a GNN's for one `GNN_SHAPES` cell), a reduced
@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.gnn import GnnConfig
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.recsys import DcnConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -63,11 +64,13 @@ class LmArch:
     d_ff: int
     vocab: int
     d_head: int | None = None
+    moe: MoEConfig | None = None
     source: str = ""
     family: str = "lm"
 
     def model_config(self) -> TransformerConfig:
-        """The published width and depth; activations bf16, params float32."""
+        """The published width and depth; activations bf16, params float32;
+        MoE layers `impl="local"`."""
         return TransformerConfig(
             self.name,
             n_layers=self.n_layers,
@@ -77,9 +80,16 @@ class LmArch:
             d_ff=self.d_ff,
             vocab=self.vocab,
             d_head=self.d_head,
+            moe=None if self.moe is None else dataclasses.replace(self.moe, impl="local"),
         )
 
     def smoke_config(self) -> TransformerConfig:
+        moe = self.moe
+        if moe is not None:
+            moe = dataclasses.replace(
+                moe, num_experts=min(8, moe.num_experts), d_ff_expert=64,
+                d_ff_shared=64 if moe.d_ff_shared else 0, impl="local",
+            )
         return TransformerConfig(
             self.name + "-smoke",
             n_layers=2,
@@ -88,6 +98,7 @@ class LmArch:
             n_kv_heads=max(1, min(4, self.n_kv_heads)),
             d_ff=128,
             vocab=512,
+            moe=moe,
             dtype=torch.float32,
         )
 

@@ -1,8 +1,8 @@
-"""--arch registry: the dense LM archs, the GNNs and dcn-v2, which the port
-can run.
+"""--arch registry: the LM archs (dense and MoE), the GNNs and dcn-v2, which
+the port can run: every arch of the JAX package.
 
-The JAX package's other archs are known by name and raise
-`NotImplementedError` naming the ROADMAP.md item that brings them.
+An arch known by name but not ported would sit in `PENDING` and raise
+`NotImplementedError` naming the ROADMAP.md item that brings it; none does.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ _MODULES = {
     "granite-34b": "granite_34b",
     "llama3.2-3b": "llama3_2_3b",
     "yi-34b": "yi_34b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "gin-tu": "gin_tu",
     "graphcast": "graphcast",
     "gat-cora": "gat_cora",
@@ -21,10 +23,7 @@ _MODULES = {
     "dcn-v2": "dcn_v2",
 }
 
-PENDING = {
-    "qwen2-moe-a2.7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
-    "olmoe-1b-7b": "MoE layers (ROADMAP.md Queue A 8, MoE impl='local')",
-}
+PENDING: dict[str, str] = {}
 
 ARCH_IDS = list(_MODULES)
 

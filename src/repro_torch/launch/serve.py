@@ -4,8 +4,9 @@
       --requests 12 --slots 4 --max-new 16
 
 serves `smoke_config()` of the arch on the card (`--device cpu` runs it on the
-host).  `build_engine` takes any `TransformerConfig`; `chip_smoke.py` drives it
-at the published width of llama3.2-3b.
+host); `--arch olmoe-1b-7b` and `--arch qwen2-moe-a2.7b` serve the MoE archs'
+smoke configs.  `build_engine` takes any `TransformerConfig`; `chip_smoke.py`
+drives it at the published widths of llama3.2-3b and olmoe-1b-7b.
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ the device through pinned memory without blocking.
 On the card every kernel of the path has a backward: attention through the
 kernel `csrc/flash_attention_bwd.cu`, GIN's ELL reduce through the same
 fused kernel over the transposed ELL, the embedding bag through its
-Function.  graphcast is refused, as the reference refuses it.
+Function.  graphcast is refused, as the reference refuses it; so are the
+MoE archs (olmoe-1b-7b, qwen2-moe-a2.7b), which the port serves but does not
+yet train (ROADMAP.md Queue A 8).
 """
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ GRAPHCAST_REFUSAL = "use examples/graphcast_regression.py for graphcast training
 
 
 def _lm_setup(arch, *, smoke: bool, batch: int, seq: int, seed: int, device: torch.device, **_):
+    if arch.moe is not None:
+        raise NotImplementedError(f"{arch.name}: MoE training is not ported yet (ROADMAP.md Queue A 8); "
+                                  "python -m repro_torch.launch.serve serves it")
     cfg = arch.smoke_config() if smoke else arch.model_config()
     params = tfm.init_params(cfg, seed, device=device)
     loss = lambda p, b: tfm.loss_fn(p, b, cfg)  # noqa: E731

@@ -30,7 +30,9 @@ What changes:
   * `cast_params` keeps one `cfg.dtype` copy of every weight instead of the
     `.astype(h.dtype)` at every use: bit-identical, and a decode step then
     reads half the bytes.
-`cfg.moe` must be None: MoE is not ported yet (ROADMAP.md Queue A 8).
+  * With `cfg.moe` the FFN is `models.moe.moe_block` (`impl="local"`) on the
+    normed input; `cast_params` keeps the router in its own type, because
+    the router computes in float32 (a bf16 copy would change its logits).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     Initializer,
     apply_rope,
@@ -66,7 +69,7 @@ class TransformerConfig:
     vocab: int
     d_head: int | None = None
     rope_theta: float = 10000.0
-    moe: object | None = None  # not ported: must stay None
+    moe: moe_lib.MoEConfig | None = None
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = False
@@ -83,22 +86,26 @@ class TransformerConfig:
     @property
     def num_params(self) -> int:
         """Parameter count N for MODEL_FLOPS = 6·N·D accounting."""
-        dh = self.head_dim
-        attn = self.d_model * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * self.d_model
-        per_layer = attn + 3 * self.d_model * self.d_ff + 2 * self.d_model
-        embed = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
-        return self.n_layers * per_layer + embed + self.d_model
+        return self._count(self.moe.num_experts if self.moe is not None else 0)
 
     @property
     def num_active_params(self) -> int:
-        return self.num_params
+        """Active params per token (MoE: only routed top-k experts count)."""
+        return self._count(self.moe.top_k if self.moe is not None else 0)
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md Queue A 8, MoE impl='local')"
-        )
+    def _count(self, experts: int) -> int:
+        """Params with `experts` routed experts a layer (dense: the FFN)."""
+        dh = self.head_dim
+        attn = self.d_model * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * self.d_model
+        if self.moe is not None:
+            m = self.moe
+            ffn = 3 * self.d_model * m.d_ff_expert * experts + 3 * self.d_model * m.d_ff_shared
+            ffn += self.d_model * m.num_experts  # router
+        else:
+            ffn = 3 * self.d_model * self.d_ff
+        per_layer = attn + ffn + 2 * self.d_model
+        embed = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + self.d_model
 
 
 # ----------------------------- parameters ---------------------------------
@@ -106,17 +113,19 @@ def _dense_only(cfg: TransformerConfig) -> None:
 
 def layer_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
     d, dh = cfg.d_model, cfg.head_dim
-    return {
+    shapes = {
         "attn_norm": (d,),
         "wq": (d, cfg.n_heads * dh),
         "wk": (d, cfg.n_kv_heads * dh),
         "wv": (d, cfg.n_kv_heads * dh),
         "wo": (cfg.n_heads * dh, d),
         "mlp_norm": (d,),
-        "w_gate": (d, cfg.d_ff),
-        "w_up": (d, cfg.d_ff),
-        "w_down": (cfg.d_ff, d),
     }
+    if cfg.moe is None:
+        shapes.update({"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)})
+    else:
+        shapes.update(moe_lib.layer_shapes(cfg.moe, d))
+    return shapes
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, *,
@@ -125,7 +134,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *,
     seeded with `seed` on `device` (None: the card).  The draws differ from
     `jax.random`'s; to compute on the JAX package's weights, carry them over
     with `repro_torch.interop.transformer_params`."""
-    _dense_only(cfg)
     ini = Initializer.seeded(seed, resolve_device(device))
     n = cfg.n_layers
     layers = {}
@@ -146,9 +154,11 @@ def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | 
     """The same tree with every tensor in `cfg.dtype` (and on `device`, where
     given).  Every use casts a weight to the activation type first, so
     computing on this tree is bit-identical; tensors already in that type and
-    place are shared, not copied."""
+    place are shared, not copied.  The MoE router is the exception: it is
+    used in float32, so it keeps its type."""
     return {
-        k: cast_params(v, cfg, device=device) if isinstance(v, dict) else v.to(device=device, dtype=cfg.dtype)
+        k: cast_params(v, cfg, device=device) if isinstance(v, dict)
+        else v.to(device=device, dtype=v.dtype if k == "router" else cfg.dtype)
         for k, v in params.items()
     }
 
@@ -173,6 +183,8 @@ def _out_proj(cfg: TransformerConfig, lp: dict, out: torch.Tensor, x: torch.Tens
 
 def _ffn_block(cfg: TransformerConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"])
+    if cfg.moe is not None:
+        return moe_lib.moe_block(cfg.moe, lp, h)
     g = h @ lp["w_gate"].to(h.dtype)
     u = h @ lp["w_up"].to(h.dtype)
     return (F.silu(g) * u) @ lp["w_down"].to(h.dtype)
@@ -227,7 +239,6 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor
 
 def forward(params: dict, tokens, cfg: TransformerConfig) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V)."""
-    _dense_only(cfg)
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(x.shape[1], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -260,7 +271,6 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.
 def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig):
     """Prefill the cache with a full prompt from position 0 (written in
     place); returns (last_logits (B, V), cache)."""
-    _dense_only(cfg)
     x = _embed(params, tokens, cfg)
     s = x.shape[1]
     if s > cache["k"].shape[2]:
@@ -274,7 +284,6 @@ def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig):
 def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
     """One decode step: tokens (B, 1) at absolute position `pos` (an int, the
     same for every row).  Returns (logits (B, V), cache)."""
-    _dense_only(cfg)
     x = _embed(params, tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]
@@ -300,7 +309,6 @@ def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
 def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
     """Continuous-batching decode: every slot at its own position.
     pos: (B,) absolute write positions; tokens: (B, 1)."""
-    _dense_only(cfg)
     x = _embed(params, tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]

@@ -611,3 +611,30 @@ def test_bf16_backward_runs_the_wgmma_kernels():
         for kernel, nc in (("dkdv", 2), ("dq", 1), ("dq", 2)):
             spill = bwd_kernel_info(dh, nc, kernel)["local_bytes"]
             assert spill <= (32 if (kernel, dh) == ("dq", 128) else 0), (dh, nc, kernel, spill)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experts,top_k,shared", [(64, 8, False), (60, 4, True)])
+def test_moe_block_on_the_card_equals_the_loop_version(experts, top_k, shared):
+    """`moe_block` (sort, scatter, bmm, deterministic combine) on CUDA against
+    `moe_loop_ref` (no sort, an expert at a time) at olmoe's and qwen2-moe's
+    expert counts, narrow widths: the same kept slots, float32 outputs
+    within 1e-5 and two runs bit-equal (bf16 too: the combine has no atomics)."""
+    _need_card()
+    from repro_torch.models import moe
+
+    m = moe.MoEConfig(experts, top_k, 96, d_ff_shared=128 if shared else 0, norm_topk=not shared)
+    rng = np.random.default_rng(0)
+    lp = {n: torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[-2])).astype(np.float32)).cuda()
+          for n, s in moe.layer_shapes(m, 128).items()}
+    x = torch.from_numpy(rng.standard_normal((1, 700, 128)).astype(np.float32)).cuda()
+    got = moe.moe_block(m, lp, x)
+    want, kept = moe.moe_loop_ref(m, lp, x)
+    _, top_i, _ = moe._router(m, lp, x[0])
+    plan = moe._plan(m, top_i)
+    kept_sort = torch.zeros_like(kept.view(-1)).index_copy_(0, plan.order, plan.keep).view(kept.shape)
+    assert torch.equal(kept, kept_sort)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, moe.moe_block(m, lp, x))
+    xb = x.bfloat16()
+    assert torch.equal(moe.moe_block(m, lp, xb), moe.moe_block(m, lp, xb))

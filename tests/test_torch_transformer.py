@@ -153,8 +153,24 @@ def test_configs_and_param_counts_equal_jax(arch):
                   "rope_theta", "tie_embeddings", "attn_block_q", "attn_block_k"):
             assert getattr(cfg, f) == getattr(jcfg, f), (which, f)
         assert cfg.num_params == jcfg.num_params
+        assert cfg.num_active_params == jcfg.num_active_params
         assert str(cfg.dtype).split(".")[-1] == jnp.dtype(jcfg.dtype).name
-    assert get_arch(arch).model_flops("prefill_32k") == jax_get_arch(arch).model_flops("prefill_32k")
+        assert (cfg.moe is None) == (jcfg.moe is None)
+        if cfg.moe is not None:  # the reference's model_config() is its dry-run's (ep_shardmap)
+            assert cfg.moe.impl == "local"
+            assert dataclasses.asdict(cfg.moe) == dict(dataclasses.asdict(jcfg.moe), impl="local")
+    cfg, jfull = get_arch(arch).model_config(), jax_get_arch(arch).model_config(dryrun=False)
+    assert (cfg.num_params, cfg.num_active_params) == (jfull.num_params, jfull.num_active_params)
+    for cell in ("train_4k", "prefill_32k", "decode_32k"):
+        assert get_arch(arch).model_flops(cell) == jax_get_arch(arch).model_flops(cell)
+
+
+@pytest.mark.parametrize("arch,params", [("olmoe-1b-7b", 6_919_096_320), ("qwen2-moe-a2.7b", 14_315_587_584)])
+def test_moe_full_width_is_the_published_one(arch, params):
+    cfg = get_arch(arch).model_config()
+    assert cfg.num_params == params == jax_get_arch(arch).model_config(dryrun=False).num_params
+    assert cfg.num_active_params < cfg.num_params and cfg.moe.impl == "local"
+    assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
 
 
 def test_llama_full_width_is_the_published_one():
@@ -175,13 +191,20 @@ def test_init_params_has_the_jax_layout(pair):
 
 
 def test_pending_archs_raise():
-    for arch in PENDING:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(arch)
+    """Nothing is pending since the MoE archs came over: every arch of the JAX
+    package resolves in the port, and an unknown one raises."""
+    from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs.registry import ARCH_IDS
+
+    assert not PENDING and sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    for arch in ("olmoe-1b-7b", "qwen2-moe-a2.7b"):
+        assert get_arch(arch).family == "lm" and get_arch(arch).model_config().moe is not None
     with pytest.raises(ValueError):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init_params(dataclasses.replace(get_arch(ARCH).smoke_config(), moe=object()), device="cpu")
+    cfg = get_arch("olmoe-1b-7b").smoke_config()
+    ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
+    with pytest.raises(NotImplementedError, match="Queue A 9"):
+        tfm.forward(tfm.init_params(ep, device="cpu"), torch.zeros((1, 4), dtype=torch.long), ep)
 
 
 def test_interop_refuses_a_wrong_tree(pair):
