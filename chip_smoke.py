@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Six paths, each driven with its kernels' launch counts set to 0 just before
-and read just after (the paper pipeline once more through its CLI):
+Seven paths, each driven with its kernels' launch counts set to 0 just
+before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
   partition → traffic → stacked placement search → stacked analytic
@@ -63,7 +63,17 @@ and read just after (the paper pipeline once more through its CLI):
   experts top-4 of width 1408, a 5632-wide shared expert with its sigmoid
   gate, vocab 151936) over 4 of its 24 layers, one prompt of 2048 tokens and
   8 decode steps; experts `impl="local"` (sort, scatter, `torch.bmm`,
-  combine); its kernel is `flash_attention` (every prefill layer).
+  combine); its kernel is `flash_attention` (every prefill layer);
+* MoE training: `launch.train.train`, the code path of `python -m
+  repro_torch.launch.train --arch olmoe-1b-7b`, on olmoe-1b-7b at its
+  published width over 8 of its 16 layers (3,562,571,776 float32 params:
+  at 16 layers the params, grads and AdamW moments, 111 GB, exceed the
+  card) for 20 steps at the LM training path's defaults, the router in
+  float32, the loss cross-entropy alone as the reference's; then
+  qwen2-moe-a2.7b at its published width over 2 of its 24 layers for 5
+  steps (the shared expert's and its gate's backward); its kernels are
+  `flash_attention` (twice a layer a step) and `flash_attention_bwd`
+  (once a layer a step, at group 1 and dh 128).
 
 Phases, one JSON line each:
 
@@ -110,10 +120,11 @@ Phases, one JSON line each:
              the forward's output and log-sum-exp against the plain
              forward's, and `flash_attention_bwd` on the kernel's forward
              against `flash_attention_bwd_ref` on the plain forward (test
-             shapes, f32 and bf16, offsets, rows that see no key, the
-             training and serve shapes; two runs bit-equal) and its time at
-             the training and serve shapes beside its bound, the plain
-             version and SDPA's backward, each of its three kernels' device
+             shapes, olmoe-1b-7b's training shape among them, f32 and
+             bf16, offsets, rows that see no key, the training and serve
+             shapes; two runs bit-equal) and its time at llama's and
+             olmoe's training shapes and the serve shape beside its bound,
+             the plain version and SDPA's backward, each of its three kernels' device
              time there, the bf16 route's kernels by name and their
              registers, spills and shared memory
   serve      the serve path, its throughput, and full-width logit checks
@@ -148,11 +159,28 @@ Phases, one JSON line each:
              decode step (router, dispatch, experts, combine, attention, the
              rest) and the decode step's byte bound with every expert read
              and with only the experts hit
+  moe_train  the MoE training path: olmoe's losses (finite, the last below
+             the first), 16 + 8 attention launches a step on the bf16
+             wgmma route, one `route_log` entry a layer a step, two
+             gradients of one state bit-equal, gradients with and without
+             the recompute bit-equal (2 layers), `moe_block`'s gradients
+             against `moe_loop_ref`'s on one layer in float32; step ms of
+             the last 10, tokens/s, peak memory, one step's device time by
+             part (GEMMs, attention forward and backward, router,
+             dispatch, expert products, combine, optimizer, the rest) and
+             busy share; C, the dropped share of every step and each
+             layer's load skew at the first and last step; the trained
+             routing's per-sequence expert counts through
+             `expert_device_permutation` (EP 8 on a 2 × 4 torus: hop
+             reduction and load balance a layer); qwen2-moe-a2.7b's
+             losses, launches (the backward's on the same route) and peak
 
 Every line carries `seconds`, the time since the line before it.
 
 then the contract lines: one `{"kernels": [...]}` object (ell_spmm,
-flash_attention, flash_attention_bwd, embedding_bag), the card's name and
+flash_attention, flash_attention_bwd, embedding_bag; the attention rows
+with their `moe_train` launches, the backward's with `moe_train_shape`),
+the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
@@ -163,6 +191,7 @@ on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -199,14 +228,16 @@ ATTN_PATH_S = (512, 2048, 3072)
 ATTN_TIMED_S = 2048
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
-# the attention backward: (B, Sq, Skv, Hq, Hkv, dh) at G = 1, 3, 3, 4, 3, every head dim,
-# ragged lengths, each causal (q_offset = Skv - Sq) and not; then q_offset -40 (40
-# rows see no key) and 37; timed at llama3.2-3b's training shape (launch.train's
-# batch 8, seq 128) and at the serve path's S
+# the attention backward: (B, Sq, Skv, Hq, Hkv, dh) at G = 1, 3, 3, 4, 3, 1, every head
+# dim, ragged lengths, olmoe-1b-7b's training shape (G = 1 at dh 128), each causal
+# (q_offset = Skv - Sq) and not; then q_offset -40 (40 rows see no key) and 37; timed
+# at llama3.2-3b's and olmoe-1b-7b's training shapes (launch.train's batch 8, seq 128)
+# and at the serve path's S
 ATTN_BWD_TEST_SHAPES = [(2, 128, 128, 4, 4, 64), (1, 96, 160, 6, 2, 32), (2, 77, 77, 24, 8, 128),
-                        (1, 200, 328, 8, 2, 128), (2, 100, 90, 6, 2, 64)]
+                        (1, 200, 328, 8, 2, 128), (8, 128, 128, 16, 16, 128), (2, 100, 90, 6, 2, 64)]
 ATTN_BWD_OFFSETS = (-40, 37)
 ATTN_TRAIN_SHAPE = (8, 128, 24, 8, 128)  # (B, S, Hq, Hkv, dh)
+ATTN_MOE_TRAIN_SHAPE = (8, 128, 16, 16, 128)
 # each gradient within this share of its largest magnitude: float32 sums in
 # another order; in bf16 the kernel and the plain version each round one fp32 value
 BWD_REL = {"f32": 1e-5, "bf16": 1e-2}
@@ -1361,9 +1392,9 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
     forward's, then the backward kernel on the kernel's forward against
     `flash_attention_bwd_ref` on the plain forward (test shapes, f32 and bf16,
     causal and not, offsets, rows that see no key; two runs bit-equal; the
-    training and serve shapes), then its time at the training shape and at
-    the serve path's S beside its bound, the plain version and the backward
-    of `scaled_dot_product_attention`."""
+    training and serve shapes), then its time at llama's and olmoe's
+    training shapes and at the serve path's S beside its bound, the plain
+    version and the backward of `scaled_dot_product_attention`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1437,7 +1468,8 @@ def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
             cases += 1
 
     timed = {}
-    for name, (b, s, hq, hkv, dh) in (("train", ATTN_TRAIN_SHAPE), ("serve", (1, ATTN_TIMED_S, 24, 8, 128))):
+    for name, (b, s, hq, hkv, dh) in (("train", ATTN_TRAIN_SHAPE), ("moe_train", ATTN_MOE_TRAIN_SHAPE),
+                                       ("serve", (1, ATTN_TIMED_S, 24, 8, 128))):
         q, k, v, o, do, lse, o_ref, lse_ref = case(b, s, s, hq, hkv, dh, torch.bfloat16, True, 0)
         bound, by = attention_bwd_bound_ms(q, k, True, 0)
         before = bwd_kernel_launches()
@@ -1899,11 +1931,13 @@ LM_GROUPS = {"gemm_ms": ("gemm", "xmma", "cutlass", "nvjet", "sm90_"), "attentio
 
 class StepRecorder:
     """`on_step` for `launch.train.train`: each step's loss and the host
-    clock at its synchronised end; `torch.profiler` over step PROFILED_STEP
-    alone (started at the end of the step before it)."""
+    clock at its synchronised end; `torch.profiler` over step
+    `profiled_step` alone (started at the end of the step before it; None:
+    no profile)."""
 
-    def __init__(self, groups: dict):
+    def __init__(self, groups: dict, profiled_step: int | None = PROFILED_STEP):
         self.losses, self.ends, self.groups = [], [], groups
+        self.profiled_step = profiled_step
         self.profile = None
         self._prof = None
 
@@ -1914,13 +1948,15 @@ class StepRecorder:
         now = time.perf_counter()
         self.losses.append(metrics["loss"])
         self.ends.append(now)
-        if metrics["step"] == PROFILED_STEP - 1:
+        if self.profiled_step is None:
+            return
+        if metrics["step"] == self.profiled_step - 1:
             self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self._prof.__enter__()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             self._t0 = time.perf_counter()
-        elif metrics["step"] == PROFILED_STEP:
+        elif metrics["step"] == self.profiled_step:
             self._prof.__exit__(None, None, None)
             self.profile = summarize_profile(device_rows(self._prof), now - self._t0, self.groups)
             self._prof = None
@@ -2527,9 +2563,11 @@ MOE_LOOP_TOL = dict(rtol=1e-4, atol=1e-4)
 MOE_TEST_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def moe_layer_input(run, layer: int) -> tuple[dict, torch.Tensor]:
-    """(weights, input) of the MoE block of layer `layer` during `run()`: the
-    transformer's reference to `models.moe` is swapped for the call, so the
+@contextlib.contextmanager
+def moe_inputs_seen(layers=None):
+    """Yields a list that gets the (weights, input) of each MoE block called
+    in the block (None for the calls not in `layers`, where given): the
+    transformer's reference to `models.moe` is swapped meanwhile, so the
     block itself runs as it is."""
     import types
 
@@ -2539,17 +2577,27 @@ def moe_layer_input(run, layer: int) -> tuple[dict, torch.Tensor]:
     seen = []
 
     def grab(m, lp, x):
-        if len(seen) <= layer:
-            seen.append((lp, x.clone()) if len(seen) == layer else None)
+        seen.append((lp, x.clone()) if layers is None or len(seen) in layers else None)
         return moe_lib.moe_block(m, lp, x)
 
-    tfm.moe_lib = types.SimpleNamespace(moe_block=grab)
+    tfm.moe_lib = types.SimpleNamespace(moe_block=grab, checkpoint_contexts=moe_lib.checkpoint_contexts)
     try:
-        run()
-        torch.cuda.synchronize()
+        yield seen
     finally:
         tfm.moe_lib = moe_lib
-    return seen[layer]
+
+
+def moe_layer_inputs(run, layers=None) -> list:
+    """(weights, input) of each MoE block called during `run()` (`moe_inputs_seen`)."""
+    with moe_inputs_seen(layers) as seen:
+        run()
+        torch.cuda.synchronize()
+    return seen
+
+
+def moe_layer_input(run, layer: int) -> tuple[dict, torch.Tensor]:
+    """(weights, input) of the MoE block of layer `layer` during `run()`."""
+    return moe_layer_inputs(run, (layer,))[layer]
 
 
 def moe_loop_check(m, lp: dict, x: torch.Tensor) -> dict:
@@ -2617,31 +2665,84 @@ def moe_decode_bytes(cfg, experts_hit: float, pos: np.ndarray) -> dict:
             "bound_ms_hit_only": (hit + other) / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def moe_split(m, lp: dict, x: torch.Tensor, attention, timer: Timer, n_layers: int, total_ms: float) -> dict:
+def moe_split(m, lp: dict, x: torch.Tensor, timer: Timer, n_layers: int, *, attention=None,
+              total_ms: float | None = None, backward: bool = False) -> dict:
     """Device ms of one call by part, each part replayed alone from a CUDA
     graph on one layer's weights and input and counted once a layer: router
-    and top-k, dispatch (sort and scatter), expert products, combine, the
-    shared expert, attention (`attention()`); the rest is `total_ms` (the
-    whole call's device time, from `torch.profiler`) less those."""
+    and top-k, dispatch (plan, sort, scatter), expert products, combine, the
+    shared expert where there is one, attention (`attention()`, where
+    given); with `total_ms` (the whole call's device time, from
+    `torch.profiler`), the rest is that less those.  With `backward` (a
+    training step, on the float32 master cast as training casts it), each
+    MoE part is the forward twice (forward and recompute) and its backward
+    once, each part's forward and backward a layer kept beside, and the
+    GEMMs inside the router and the expert products (the float32 router
+    product, the experts' `bmm`s, forward twice and backward) are timed too."""
     from repro_torch.models import moe as moe_lib
 
-    flat = x.reshape(-1, x.shape[-1])
-    top_p, top_i, _ = moe_lib._router(m, lp, flat)
-    plan = moe_lib._plan(m, top_i)
-    buf = moe_lib._dispatch(m, plan, flat)
-    y = moe_lib._expert_ffn(lp["we_gate"], lp["we_up"], lp["we_down"], buf)
+    check(not (backward and m.d_ff_shared), "the training split has no shared-expert backward")
+    flat = x.reshape(-1, x.shape[-1]).detach()
+    w = {k: v.detach().clone().requires_grad_(True) for k, v in lp.items()} if backward else lp
+    with torch.no_grad():
+        top_p, top_i, _ = moe_lib._router(m, w, flat)
+        plan = moe_lib._plan(m, top_i)
+        buf = moe_lib._dispatch(m, plan, flat)
+        y = moe_lib._expert_ffn(w["we_gate"], w["we_up"], w["we_down"], buf)
     parts = {
-        "router_topk_ms": lambda: moe_lib._router(m, lp, flat),
+        "router_topk_ms": lambda: moe_lib._router(m, w, flat),
         "dispatch_ms": lambda: moe_lib._dispatch(m, moe_lib._plan(m, top_i), flat),
-        "experts_ms": lambda: moe_lib._expert_ffn(lp["we_gate"], lp["we_up"], lp["we_down"], buf),
+        "experts_ms": lambda: moe_lib._expert_ffn(w["we_gate"], w["we_up"], w["we_down"], buf),
         "combine_ms": lambda: moe_lib._combine(m, plan, y, top_p),
-        "attention_ms": attention,
     }
     if m.d_ff_shared:
-        parts["shared_expert_ms"] = lambda: moe_lib._shared_expert(lp, x)
-    out = {k: timer.device_ms(fn, calls=5, reps=10) * n_layers for k, fn in parts.items()}
-    out["total_ms"] = total_ms
-    out["rest_ms"] = total_ms - sum(out[k] for k in parts) if total_ms > 0 else "not measured"
+        parts["shared_expert_ms"] = lambda: moe_lib._shared_expert(w, x)
+    with torch.no_grad():
+        a_layer = {k: timer.device_ms(fn, calls=5, reps=10) for k, fn in parts.items()}
+    if attention is not None:
+        a_layer["attention_ms"] = timer.device_ms(attention, calls=5, reps=10)
+    out = {}
+    if backward:
+        xg = flat.clone().requires_grad_(True)
+        bufg, yg, top_pg = (t.clone().requires_grad_(True) for t in (buf, y, top_p))
+        gen = torch.Generator(device=x.device).manual_seed(5)
+
+        def randn(shape, dtype):
+            return torch.randn(shape, generator=gen, device=x.device).to(dtype)
+
+        def with_backward(fwd, inputs, like):
+            cot = randn(like.shape, like.dtype)
+            return lambda: torch.autograd.grad(fwd(), inputs, cot)
+
+        experts = (w["we_gate"], w["we_up"], w["we_down"])
+        with_bwd = {
+            "router_topk_ms": with_backward(lambda: moe_lib._router(m, w, xg)[0], (xg, w["router"]), top_p),
+            "dispatch_ms": with_backward(lambda: moe_lib._dispatch(m, moe_lib._plan(m, top_i), xg), (xg,), buf),
+            "experts_ms": with_backward(lambda: moe_lib._expert_ffn(*experts, bufg), (bufg, *experts), y),
+            "combine_ms": with_backward(lambda: moe_lib._combine(m, plan, yg, top_pg), (yg, top_pg), flat),
+        }
+        for key, fn in with_bwd.items():
+            f, fb = a_layer[key], timer.device_ms(fn, calls=5, reps=10)
+            out[key[:-3] + "_forward_ms_a_layer"] = f
+            out[key[:-3] + "_backward_ms_a_layer"] = fb - f
+            a_layer[key] = f + fb
+        # the GEMMs alone: the router's float32 product, the experts' three bmm's
+        x32, r = flat.float(), w["router"].detach()
+        dlogits = randn((x32.shape[0], m.num_experts), torch.float32)
+        wg, wu, wd = (t.detach().to(buf.dtype) for t in experts)
+        h = randn((m.num_experts, plan.C, m.d_ff_expert), buf.dtype)
+        dh, dy = randn(h.shape, buf.dtype), randn(y.shape, buf.dtype)
+        gemms = [(lambda: x32 @ r, lambda: (dlogits @ r.T, x32.T @ dlogits)),
+                 (lambda: (torch.bmm(buf, wg), torch.bmm(buf, wu), torch.bmm(h, wd)),
+                  lambda: (torch.bmm(dy, wd.transpose(1, 2)), torch.bmm(h.transpose(1, 2), dy),
+                           torch.bmm(dh, wg.transpose(1, 2)), torch.bmm(buf.transpose(1, 2), dh),
+                           torch.bmm(dh, wu.transpose(1, 2)), torch.bmm(buf.transpose(1, 2), dh)))]
+        with torch.no_grad():
+            a_layer["gemm_inside_router_and_experts_ms"] = sum(
+                2 * timer.device_ms(f, calls=5, reps=10) + timer.device_ms(b, calls=5, reps=10) for f, b in gemms)
+    out |= {k: v * n_layers for k, v in a_layer.items()}
+    if total_ms is not None:
+        out["total_ms"] = total_ms
+        out["rest_ms"] = total_ms - sum(out[k] for k in a_layer) if total_ms > 0 else "not measured"
     return out
 
 
@@ -2709,7 +2810,8 @@ def moe_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: i
     prof_prefill = profile_window(lambda: prefill_one(engine.cache, 0, toks))
     q = torch.randn((1, n, cfg.n_heads, cfg.head_dim), device=device).bfloat16()
     kv = torch.randn((1, n, cfg.n_kv_heads, cfg.head_dim), device=device).bfloat16()
-    split_prefill = moe_split(m, lp, x, lambda: causal_attention(q, kv, kv), timer, L, prof_prefill["device_ms"])
+    split_prefill = moe_split(m, lp, x, timer, L, attention=lambda: causal_attention(q, kv, kv),
+                              total_ms=prof_prefill["device_ms"])
     pos = torch.from_numpy(engine.pos.astype(np.int64)).to(device)
     step_tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=device)
     lpd, xd = moe_layer_input(lambda: decode(engine.cache, step_tokens, pos), layer)
@@ -2721,8 +2823,9 @@ def moe_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: i
     prof_decode = profile_window(eight_steps)
     qd = torch.randn((SERVE_SLOTS, 1, cfg.n_heads, cfg.head_dim), device=device).bfloat16()
     ck, cv = engine.cache["k"][0], engine.cache["v"][0]
-    split_decode = moe_split(m, lpd, xd, lambda: gqa_attention(qd, ck, cv, causal=False, kv_valid_len=pos + 1),
-                             timer, L, prof_decode["device_ms"] / 8)
+    split_decode = moe_split(m, lpd, xd, timer, L,
+                             attention=lambda: gqa_attention(qd, ck, cv, causal=False, kv_valid_len=pos + 1),
+                             total_ms=prof_decode["device_ms"] / 8)
     decode_bytes = moe_decode_bytes(cfg, decode_routes["experts_hit_a_call"], engine.pos)
     decode_routes = {k: v for k, v in decode_routes.items() if k != "calls"} | {
         "C": sorted({c["C"] for c in decode_routes["calls"]}),
@@ -2809,6 +2912,302 @@ def phase_moe(device: torch.device, seed: int, smi: str | None, timer: Timer) ->
     return out, attn
 
 
+# --------------------------------------------------------------------------- MoE training
+
+# olmoe-1b-7b at its published width through launch.train.train at the reference's defaults, cut in
+# depth: at 16 layers its float32 params, grads and two AdamW moments come to 111 GB, more than the
+# card; 8 layers (3,562,571,776 params, 57.0 GB of that state) is about llama3.2-3b's size (3.61 G,
+# a 66.24 GB peak).  Then qwen2-moe-a2.7b at its published width over 2 of its 24 layers (its shared
+# expert and sigmoid gate), 5 steps
+MOE_TRAIN_LAYERS = 8
+MOE_EQUAL_LAYERS = 2  # gradients with the recompute and without, at this depth
+MOE_WIDE_TRAIN_LAYERS, MOE_WIDE_TRAIN_STEPS = 2, 5
+# moe_block's gradients against moe_loop_ref's on one layer in float32 at 1,024 tokens: each within
+# this share of its largest entry (float32 sums of up to 1,024 terms in other shapes and orders;
+# tests/test_torch_moe_train.py holds 1e-6 at width 32)
+MOE_GRAD_REL = 1e-5
+MOE_EP, MOE_EP_TORUS = 8, (2, 4)  # expert_device_permutation: one row a sequence, EP 8 on a 2 × 4 torus
+
+
+def train_grads(params, batch, cfg) -> tuple:
+    """Every leaf's gradient of `tfm.loss_fn` on one batch (what a training step takes from autograd)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.pytree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        return torch.autograd.grad(tfm.loss_fn(params, batch, cfg), leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def bit_equal(a: tuple, b: tuple) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def moe_grads_vs_loop(m, lp: dict, x: torch.Tensor) -> dict:
+    """`moe_block`'s gradients (input, router, expert stacks; the shared
+    expert's where there is one) against `moe_loop_ref`'s in float32, on one
+    layer's weights and input, for one seeded cotangent."""
+    from repro_torch.models import moe as moe_lib
+
+    names = [k for k in moe_lib.layer_shapes(m, x.shape[-1]) if k in lp]
+    x32 = x.float()
+    dy = torch.randn(x32.shape, generator=torch.Generator(device=x.device).manual_seed(11), device=x.device)
+
+    def grads(fn):
+        w = {k: lp[k].detach().float().clone().requires_grad_(True) for k in names}
+        xi = x32.clone().requires_grad_(True)
+        return torch.autograd.grad((fn(m, w, xi) * dy).sum(), [xi, *w.values()])
+
+    got = grads(moe_lib.moe_block)
+    want = grads(lambda *a: moe_lib.moe_loop_ref(*a)[0])
+    rel = {n: float((g - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+           for n, g, w in zip(["input", *names], got, want)}
+    out = {"dtype": "float32", "tokens": x.shape[0] * x.shape[1], "max_rel_err": rel,
+           "tolerance_rel": MOE_GRAD_REL}
+    check(max(rel.values()) <= MOE_GRAD_REL, f"moe_block's gradients vs moe_loop_ref's: {rel}")
+    return out
+
+
+def moe_step_routes(routes: list, m, n_layers: int) -> dict:
+    """C, the dropped share and each layer's load skew of every step, from
+    `route_log` (one (C, counts) a layer a step)."""
+    steps = [routes[i:i + n_layers] for i in range(0, len(routes), n_layers)]
+    by_step = [moe_routes([s], m, n_layers) for s in steps]
+    return {"C": sorted({c["C"] for r in by_step for c in r["calls"]}),
+            "dropped_share_by_step": [r["calls"][0]["dropped_share"] for r in by_step],
+            "first_step": {"dropped_share": by_step[0]["calls"][0]["dropped_share"],
+                           "skew_by_layer": by_step[0]["skew_by_layer"]},
+            "last_step": {"dropped_share": by_step[-1]["calls"][0]["dropped_share"],
+                          "skew_by_layer": by_step[-1]["skew_by_layer"]}}
+
+
+def moe_placement(m, layer_inputs: list, batch: int) -> dict:
+    """`expert_device_permutation` fed by the card's routing: for each layer
+    the experts each of the `batch` sequences routes its tokens' slots to
+    (one row a sequence, as data-parallel shards would hold them), at EP
+    MOE_EP on a Torus2D(MOE_EP_TORUS)."""
+    from repro_torch.core.noc import Torus2D
+    from repro_torch.models import moe as moe_lib
+
+    by_layer = []
+    for lp, x in layer_inputs:
+        _, top_i, _ = moe_lib._router(m, lp, x.reshape(-1, x.shape[-1]))
+        counts = torch.zeros((batch, m.num_experts), dtype=torch.long, device=x.device)
+        counts.scatter_add_(1, top_i.reshape(batch, -1), torch.ones_like(top_i.reshape(batch, -1)))
+        perm, stats = moe_lib.expert_device_permutation(counts.cpu().numpy(), MOE_EP, topology=Torus2D(*MOE_EP_TORUS))
+        by_layer.append({"hop_reduction": stats["hop_reduction"], "load_balance": stats["load_balance"],
+                         "hops_identity": stats["hops_identity"], "hops_optimized": stats["hops_optimized"],
+                         "perm": perm.tolist()})
+    return {"ep": MOE_EP, "topology": f"Torus2D{MOE_EP_TORUS}", "rows": batch, "counts": "routed slots (top-k "
+            "choices, before capacity) of each sequence to each expert", "by_layer": by_layer}
+
+
+def phase_moe_train(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """`launch.train.train`, the code path of `python -m repro_torch.launch.train
+    --arch olmoe-1b-7b`: olmoe-1b-7b at its published width over
+    MOE_TRAIN_LAYERS layers for TRAIN_STEPS steps at the reference's
+    defaults (batch 8, seq 128, lr 1e-3, AdamW with clip 1.0, a recompute a
+    layer, bf16 activations over a float32 master, the router in float32),
+    its routing logged (`moe_block.route_log`); then its checks (losses,
+    launches, route_log entries, two gradients bit-equal, recompute on and
+    off bit-equal, `moe_block`'s gradients against `moe_loop_ref`'s), the
+    step's device split, the routing fed to `expert_device_permutation`,
+    and qwen2-moe-a2.7b over MOE_WIDE_TRAIN_LAYERS layers.  The kernels'
+    counts are set to 0 just before each training run and read just after;
+    returns the numbers and the counts."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import bwd_kernel_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import adamw, cosine_schedule
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).model_config(), n_layers=MOE_TRAIN_LAYERS)
+    m, L = cfg.moe, cfg.n_layers
+    rec = StepRecorder(LM_GROUPS)
+    held, profiled = {}, contextlib.ExitStack()
+
+    def on_step(state, metrics, batch):
+        """Keeps the first batch; for the profiled step, the middle layer's
+        MoE weights it runs on (copied to the host before the profile starts)
+        and that layer's input in its forward, for `moe_split`."""
+        if metrics["step"] == 0:
+            held["batch"] = batch
+        if metrics["step"] == PROFILED_STEP - 1:
+            held["weights"] = {k: state.params["layers"][k][L // 2].cpu() for k in moe_lib.layer_shapes(m, cfg.d_model)}
+            held["inputs"] = profiled.enter_context(moe_inputs_seen((L // 2,)))
+        rec(state, metrics, batch)
+        if metrics["step"] == PROFILED_STEP:
+            profiled.close()
+
+    log, routes = [], []
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    bwd_before = bwd_kernel_launches()
+    moe_lib.moe_block.route_log = routes
+    t0 = time.perf_counter()
+    try:
+        state = train(MOE_ARCH, steps=TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=TRAIN_LR,
+                      device=device, seed=seed, cfg=cfg, on_step=on_step, log_fn=log.append)
+        torch.cuda.synchronize()
+    finally:
+        moe_lib.moe_block.route_log = None
+        profiled.close()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "flash_attention_bwd": flash_attention_bwd.launches}
+    bwd_kernels = {n: c - bwd_before[n] for n, c in bwd_kernel_launches().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = rec.float_losses()
+    check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, f"olmoe trained {state.step} steps")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"olmoe losses: {losses}")
+    check(launches["flash_attention"] == 2 * L * TRAIN_STEPS,
+          f"attention forward launches {launches['flash_attention']}, want 2 a layer a step (recompute)")
+    check(launches["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"attention backward launches {launches['flash_attention_bwd']}, want 1 a layer a step")
+    check(bwd_kernels == {n: c * launches["flash_attention_bwd"] for n, c in BWD_BF16_ROUTE.items()},
+          f"the backward's kernels on the MoE training path: {bwd_kernels}, want the bf16 wgmma route each call")
+    check(len(routes) == L * TRAIN_STEPS, f"route_log holds {len(routes)} entries, want one a layer a step "
+          f"({L * TRAIN_STEPS})")
+    step_ms = rec.step_ms()
+    step_routes = moe_step_routes(routes, m, L)
+    batch, params = held["batch"], state.params
+    split_weights, split_x = held["weights"], held["inputs"][L // 2][1]  # the input alone: its weights are views
+    del state, held, routes  # the moments with the state: nothing below needs them
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the trained model's routing, fed to the placement, and one layer's gradients against the loop's
+    with torch.no_grad():
+        inputs = moe_layer_inputs(lambda: tfm.loss_fn(params, batch, cfg))
+    check(len(inputs) == L, f"{len(inputs)} MoE blocks in a forward of {L} layers")
+    placement = moe_placement(m, inputs, LM_TRAIN_BATCH)
+    lp, x = inputs[L // 2]
+    grads_vs_loop = moe_grads_vs_loop(m, lp, x) | {"layer": L // 2}
+    del inputs, lp, x
+    torch.cuda.empty_cache()
+
+    # two gradients of the trained state on one batch, bit for bit
+    g1 = train_grads(params, batch, cfg)
+    g2 = train_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    grads_bit_equal = bit_equal(g1, g2)
+    check(grads_bit_equal, "two gradients of one state on one batch differ: "
+          f"{[i for i, (a, b) in enumerate(zip(g1, g2)) if not torch.equal(a, b)]}")
+    del g2
+    torch.cuda.empty_cache()
+
+    # the optimizer alone: one AdamW update (clip included) of every leaf by that gradient, from fresh
+    # moments (the same work as a step's update); it writes the params, which nothing reads after it
+    opt = adamw(cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS))
+    opt_state = opt.init(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    opt_ms = []
+    for _ in range(3):
+        ev[0].record()
+        opt.update(g1, opt_state, params, TRAIN_STEPS)
+        ev[1].record()
+        torch.cuda.synchronize()
+        opt_ms.append(ev[0].elapsed_time(ev[1]))
+    del g1, opt_state, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    split = moe_split(m, {k: v.to(device) for k, v in split_weights.items()}, split_x, timer, L, backward=True)
+    split["optimizer_ms"] = statistics.median(opt_ms)
+    prof = rec.profile
+    if prof and prof["device_ms"] > 0:
+        split |= {"gemm_ms": prof["gemm_ms"] - split["gemm_inside_router_and_experts_ms"],
+                  **{k: prof[k] for k in ("attention_forward_ms", "attention_backward_ms", "device_ms")}}
+        split["rest_ms"] = prof["device_ms"] - sum(split[k] for k in (
+            "router_topk_ms", "dispatch_ms", "experts_ms", "combine_ms", "gemm_ms", "attention_forward_ms",
+            "attention_backward_ms", "optimizer_ms"))
+    else:
+        split |= {"gemm_ms": "not measured (the profiler saw no kernel)", "rest_ms": "not measured"}
+    del split_weights, split_x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the recompute routes as the forward did: gradients with it and without, at a cut depth
+    cfg_eq = dataclasses.replace(cfg, n_layers=MOE_EQUAL_LAYERS)
+    params_eq = tfm.init_params(cfg_eq, seed, device=device)
+    with_remat = train_grads(params_eq, batch, cfg_eq)
+    without = train_grads(params_eq, batch, dataclasses.replace(cfg_eq, remat=False))
+    torch.cuda.synchronize()
+    remat_bit_equal = bit_equal(with_remat, without)
+    check(remat_bit_equal, "gradients with the recompute and without differ: "
+          f"{[i for i, (a, b) in enumerate(zip(with_remat, without)) if not torch.equal(a, b)]}")
+    del params_eq, with_remat, without
+    torch.cuda.empty_cache()
+
+    olmoe = {
+        "arch": MOE_ARCH, "layers": L, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab, "experts": m.num_experts, "top_k": m.top_k,
+        "d_ff_expert": m.d_ff_expert, "capacity_factor": m.capacity_factor, "impl": m.impl,
+        "params": cfg.num_params, "active_params": cfg.num_active_params, "param_dtype": "float32",
+        "activations": "bfloat16", "router": "float32", "remat": cfg.remat, "loss": "cross-entropy alone",
+        "cuts": [f"{L} of {get_arch(MOE_ARCH).n_layers} layers: at 16 its float32 params, grads and AdamW moments "
+                 "(111 GB) exceed the card; weights random from a seeded generator"],
+        "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+        "wall_s": wall_s, "step_ms_median_last10": step_ms,
+        "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (step_ms / 1e3), "max_memory_allocated_gb": peak_gb,
+        "profile_one_step": rec.profile, "split_one_step_ms": split, "routes": step_routes,
+        "flash_attention_launches_a_step": launches["flash_attention"] / TRAIN_STEPS,
+        "flash_attention_bwd_launches_a_step": launches["flash_attention_bwd"] / TRAIN_STEPS,
+        "flash_attention_bwd_kernel_launches": bwd_kernels, "route_log_entries_a_step": L,
+        "grads_bit_equal_two_runs": grads_bit_equal,
+        f"grads_bit_equal_remat_on_off_{MOE_EQUAL_LAYERS}_layers": remat_bit_equal,
+        "grads_vs_loop": grads_vs_loop, "expert_placement": placement, "log": log,
+    }
+
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_TRAIN_LAYERS)
+    qrec = StepRecorder(LM_GROUPS, profiled_step=None)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    bwd_before = bwd_kernel_launches()
+    qstate = train(MOE_WIDE_ARCH, steps=MOE_WIDE_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=TRAIN_LR,
+                   device=device, seed=seed, cfg=wide, on_step=qrec, log_fn=lambda _: None)
+    torch.cuda.synchronize()
+    qlosses = qrec.float_losses()
+    q_launches = (flash_attention.launches, flash_attention_bwd.launches)
+    q_bwd_kernels = {n: c - bwd_before[n] for n, c in bwd_kernel_launches().items()}
+    check(qstate.step == MOE_WIDE_TRAIN_STEPS and all(np.isfinite(qlosses)), f"qwen2-moe losses: {qlosses}")
+    check(q_launches == (2 * wide.n_layers * MOE_WIDE_TRAIN_STEPS, wide.n_layers * MOE_WIDE_TRAIN_STEPS),
+          f"qwen2-moe attention launches {q_launches}")
+    check(q_bwd_kernels == {n: c * q_launches[1] for n, c in BWD_BF16_ROUTE.items()},
+          f"the backward's kernels on qwen2-moe's training path: {q_bwd_kernels}, want the bf16 wgmma route each call")
+    qwen = {"arch": MOE_WIDE_ARCH, "layers": wide.n_layers, "experts": wide.moe.num_experts,
+            "top_k": wide.moe.top_k, "d_ff_expert": wide.moe.d_ff_expert, "d_ff_shared": wide.moe.d_ff_shared,
+            "params": wide.num_params, "steps": MOE_WIDE_TRAIN_STEPS, "losses": qlosses,
+            "step_ms_median": qrec.step_ms(), "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_attention_launches": q_launches[0], "flash_attention_bwd_launches": q_launches[1],
+            "flash_attention_bwd_kernel_launches": q_bwd_kernels,
+            "cuts": [f"{wide.n_layers} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, {MOE_WIDE_TRAIN_STEPS} steps"]}
+    del qstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"olmoe": olmoe, "qwen": qwen,
+           "timing": "step_ms_median_last10: host clock between the synchronised ends of consecutive loop steps, "
+                     "median of the last 10; profile_one_step: torch.profiler over step 5 alone; "
+                     "split_one_step_ms: the MoE parts and the GEMMs inside them timed alone on the middle layer "
+                     "with CUDA events (forward, and forward with backward, each replayed from a CUDA graph; the "
+                     "forward counted twice), times the layers; GEMMs and attention "
+                     "from profile_one_step (GEMMs less those inside the MoE parts); rest = device_ms less all; "
+                     "optimizer: one AdamW update (clip included) of every leaf by a gradient of the trained "
+                     "state, from fresh moments, after the checks, CUDA events, median of 3; qwen step_ms_median: "
+                     "its last 4 steps",
+           "card": smi}
+    say("moe_train", **out)
+    return out, {"flash_attention": launches["flash_attention"], "flash_attention_bwd": launches["flash_attention_bwd"],
+                 "flash_attention_qwen": q_launches[0], "flash_attention_bwd_qwen": q_launches[1]}
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -2873,6 +3272,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe, moe_attn = phase_moe(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()  # the serve weights, before the training state
+    torch.cuda.empty_cache()
+    _, moe_train_launches = phase_moe_train(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -2913,6 +3315,8 @@ def main() -> int:
         "launches_moe": moe["olmoe"]["flash_attention_launches"],
         "launches_moe_qwen": moe["qwen"]["flash_attention_launches"],
         "moe_shape": moe_attn,
+        "launches_moe_train": moe_train_launches["flash_attention"],
+        "launches_moe_train_qwen": moe_train_launches["flash_attention_qwen"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
@@ -2928,6 +3332,12 @@ def main() -> int:
         "kernel_resources": attn["backward"]["kernel_resources"],
         "serve_shape": {k: attn["backward"]["timed"]["serve"][k] for k in (
             "q", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "kernels_ms")},
+        "launches_moe_train": moe_train_launches["flash_attention_bwd"],
+        "launches_moe_train_qwen": moe_train_launches["flash_attention_bwd_qwen"],
+        "moe_train_shape": {"shape": "olmoe-1b-7b training attention: q/k/v (8, 128, 16, 128) bf16, causal",
+                            **{k: attn["backward"]["timed"]["moe_train"][k] for k in (
+                                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
+                                "max_rel_err_vs_plain", "kernels_launched_a_call", "consumer_groups")}},
     }, {
         "name": "embedding_bag", "route": "cuda", "source": BAG_SOURCE, "replaces": BAG_REPLACES,
         "launches": bag_launches,

@@ -14,13 +14,17 @@ the device through pinned memory without blocking.
   PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --batch 65536 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke --device cpu --steps 2 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke --device cpu --steps 2
 
 On the card every kernel of the path has a backward: attention through the
 kernel `csrc/flash_attention_bwd.cu`, GIN's ELL reduce through the same
 fused kernel over the transposed ELL, the embedding bag through its
-Function.  graphcast is refused, as the reference refuses it; so are the
-MoE archs (olmoe-1b-7b, qwen2-moe-a2.7b), which the port serves but does not
-yet train (ROADMAP.md Queue A 8).
+Function.  The MoE archs (olmoe-1b-7b, qwen2-moe-a2.7b) train as the
+reference trains them, on cross-entropy alone, their experts `impl="local"`.
+At full depth olmoe-1b-7b's float32 params, grads and AdamW moments come to
+111 GB, more than one H100 holds: `train(..., cfg=...)` trains a
+configuration of the caller's (`chip_smoke.py` cuts the depth).  graphcast
+is refused, as the reference refuses it.
 """
 from __future__ import annotations
 
@@ -48,19 +52,16 @@ __all__ = ["train", "main"]
 GRAPHCAST_REFUSAL = "use examples/graphcast_regression.py for graphcast training"
 
 
-def _lm_setup(arch, *, smoke: bool, batch: int, seq: int, seed: int, device: torch.device, **_):
-    if arch.moe is not None:
-        raise NotImplementedError(f"{arch.name}: MoE training is not ported yet (ROADMAP.md Queue A 8); "
-                                  "python -m repro_torch.launch.serve serves it")
-    cfg = arch.smoke_config() if smoke else arch.model_config()
+def _lm_setup(arch, *, cfg=None, smoke: bool, batch: int, seq: int, seed: int, device: torch.device, **_):
+    cfg = cfg or (arch.smoke_config() if smoke else arch.model_config())
     params = tfm.init_params(cfg, seed, device=device)
     loss = lambda p, b: tfm.loss_fn(p, b, cfg)  # noqa: E731
     batches = Prefetcher(to_device(b, device) for b in TokenPipeline(cfg.vocab, seq, batch, seed=seed))
     return cfg, params, loss, batches
 
 
-def _gnn_setup(arch, *, smoke: bool, seed: int, device: torch.device, **_):
-    cfg = arch.smoke_config() if smoke else arch.model_config("full_graph_sm")
+def _gnn_setup(arch, *, cfg=None, smoke: bool, seed: int, device: torch.device, **_):
+    cfg = cfg or (arch.smoke_config() if smoke else arch.model_config("full_graph_sm"))
     if cfg.kind == "graphcast":
         raise SystemExit(GRAPHCAST_REFUSAL)
     params = gnn_lib.init_params(cfg, seed, device=device)
@@ -73,8 +74,8 @@ def _gnn_setup(arch, *, smoke: bool, seed: int, device: torch.device, **_):
     return cfg, params, loss, itertools.repeat(batch)
 
 
-def _recsys_setup(arch, *, smoke: bool, batch: int, seed: int, device: torch.device, bag_impl: str, **_):
-    cfg = arch.smoke_config() if smoke else arch.model_config()
+def _recsys_setup(arch, *, cfg=None, smoke: bool, batch: int, seed: int, device: torch.device, bag_impl: str, **_):
+    cfg = cfg or (arch.smoke_config() if smoke else arch.model_config())
     cfg = dataclasses.replace(cfg, bag_impl=bag_impl)
     params = rec_lib.init_params(cfg, seed, device=device)
     loss = lambda p, b: rec_lib.loss_fn(p, b, cfg)  # noqa: E731
@@ -99,16 +100,19 @@ def train(
     device: str | torch.device | None = None,
     seed: int = 0,
     bag_impl: str = "auto",
+    cfg=None,
     on_step: typing.Callable | None = None,
     log_fn: typing.Callable[[str], None] = print,
 ) -> TrainState:
     """Train `arch_id` for `steps` steps on `device` (None: the card) and
     return the final state.  `seq` is the LM family's sequence length;
     `bag_impl` picks dcn-v2's embedding-bag route (the kernel by default);
-    `on_step(state, metrics, batch)` sees every step."""
+    `cfg`, where given, is the model configuration to train in place of the
+    arch's published one (or its smoke one); `on_step(state, metrics,
+    batch)` sees every step."""
     dev = resolve_device(device)
     arch = get_arch(arch_id)
-    cfg, params, loss, batches = _SETUP[arch.family](arch, smoke=smoke, batch=batch, seq=seq, seed=seed,
+    cfg, params, loss, batches = _SETUP[arch.family](arch, cfg=cfg, smoke=smoke, batch=batch, seq=seq, seed=seed,
                                                      device=dev, bag_impl=bag_impl)
     n_params = sum(p.numel() for p in tree_leaves(params))
     log_fn(f"[train] {arch_id} family={arch.family} params={n_params:,} device={dev}")

@@ -24,19 +24,29 @@ What changes:
     reference's einsums, every expert's weights read whether it got a slot
     or not (a grouped GEMM is later work, ROADMAP.md Queue B).
 `moe_loop_ref` is a second, plain version that uses no sort (a loop over
-experts); the tests and `chip_smoke.py` hold `moe_block` against it.
-Not ported: `impl="ep_shardmap"` (expert parallelism over a mesh),
-`layer_specs` and `expert_device_permutation`, all ROADMAP.md Queue A 9.
+experts); the tests and `chip_smoke.py` hold `moe_block` against it, its
+output and its gradients.  Training differentiates `moe_block` by autograd:
+the loss is cross-entropy alone, as the reference's (`load_balance_loss` is
+defined, and no training loss calls it).  `moe_block.route_log` gets one
+entry a layer a forward: a recompute under `checkpoint` (with
+`checkpoint_contexts`) routes the same tokens again and logs nothing.
+`expert_device_permutation` (host numpy, the paper's placement applied to
+expert blocks) is ported.
+Not ported: `impl="ep_shardmap"` (expert parallelism over a mesh) and
+`layer_specs`, ROADMAP.md Queue A 9.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["MoEConfig", "layer_shapes", "capacity", "moe_block", "moe_loop_ref", "load_balance_loss"]
+__all__ = ["MoEConfig", "layer_shapes", "capacity", "moe_block", "moe_loop_ref", "load_balance_loss",
+           "checkpoint_contexts", "expert_device_permutation"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +221,22 @@ def moe_block(m: MoEConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 moe_block.route_log = None
 
 
+@contextlib.contextmanager
+def _route_log_off():
+    log, moe_block.route_log = moe_block.route_log, None
+    try:
+        yield
+    finally:
+        moe_block.route_log = log
+
+
+def checkpoint_contexts():
+    """`context_fn` of `torch.utils.checkpoint.checkpoint`: the forward logs
+    its routings, the recompute in the backward does not, so `route_log`
+    holds one entry a layer a forward."""
+    return contextlib.nullcontext(), _route_log_off()
+
+
 def moe_loop_ref(m: MoEConfig, lp: dict, x: torch.Tensor):
     """The plain version of `moe_block`, without the sort: for each expert,
     the slots routed to it in token order, the first C kept, its SwiGLU times
@@ -234,3 +260,66 @@ def moe_loop_ref(m: MoEConfig, lp: dict, x: torch.Tensor):
     if m.d_ff_shared:
         out = out + _shared_expert(lp, x)
     return out, kept
+
+
+# ---------------------- paper tie-in: expert placement ---------------------
+
+
+def expert_device_permutation(
+    route_counts: np.ndarray,
+    ep_size: int,
+    *,
+    topology=None,
+    seed: int = 0,
+) -> tuple[np.ndarray, dict[str, float]]:
+    """Choose which expert block lands on which model-axis position.
+
+    route_counts: (num_dp_shards, num_experts) token counts from routing
+    statistics.  Experts are dealt into `ep_size` blocks in order of load
+    (Algorithm 2's degree-sorted cyclic deal, an expert's "degree" being the
+    tokens routed to it); block-to-block traffic is what the data-parallel
+    shard beside block i sends to the experts of block j; the blocks are
+    placed on the interconnect (a `Torus2D` by default) by the paper's
+    Algorithm 4 with merged nodes: `greedy_placement`, then the steepest
+    2-opt `two_opt_best_move`, kept only if it beats the identity.
+
+    Returns (perm, stats): perm[b] = device position of expert block b; stats
+    the average hops of both placements, their ratio and the blocks' load
+    balance (max/mean).  Host numpy, bit-equal to the reference.
+    """
+    from repro_torch.core import placement as placement_lib
+    from repro_torch.core.noc import Torus2D
+
+    counts = np.asarray(route_counts, dtype=np.float64)
+    n_dp, n_exp = counts.shape
+    order = np.argsort(-counts.sum(0), kind="stable")
+    block_of = np.empty(n_exp, dtype=np.int64)
+    block_of[order] = np.arange(n_exp) % ep_size
+    # block traffic: DP shard d (beside block d % ep) → expert block b
+    traffic = np.zeros((ep_size, ep_size))
+    for d in range(n_dp):
+        src_block = d % ep_size
+        for b in range(ep_size):
+            traffic[src_block, b] += counts[d, block_of == b].sum()
+    np.fill_diagonal(traffic, 0.0)
+    if topology is None:
+        kx = int(np.sqrt(ep_size))
+        while ep_size % kx:
+            kx -= 1
+        topology = Torus2D(kx, ep_size // kx)
+    greedy = placement_lib.greedy_placement(traffic, topology, seed=seed)
+    placed = placement_lib.two_opt_best_move(greedy, traffic)
+    identity = placement_lib.Placement(topology, np.arange(ep_size), "identity")
+    h_opt, h_id = placed.average_hops(traffic), identity.average_hops(traffic)
+    if h_opt >= h_id:
+        placed, h_opt = identity, h_id
+    stats = {
+        "hops_optimized": float(h_opt),
+        "hops_identity": float(h_id),
+        "hop_reduction": float(h_id / h_opt) if h_opt else 1.0,
+        "load_balance": float(
+            np.bincount(block_of, weights=counts.sum(0), minlength=ep_size).max()
+            / max(counts.sum() / ep_size, 1e-9)
+        ),
+    }
+    return placed.site.copy(), stats

@@ -12,7 +12,9 @@ What changes:
     where indexing each layer would add a leaf-sized zero tensor a layer);
     `cfg.remat` (default True, as the reference) recomputes each layer in the
     backward (`torch.utils.checkpoint`, non-reentrant) when grad is on, so the
-    attention forward kernel runs twice a layer in a training step; no mesh
+    attention forward kernel runs twice a layer in a training step (an MoE
+    layer routes twice too, and logs its routing once:
+    `moe.checkpoint_contexts`); no mesh
     (`models/sharding.py` is not ported).
   * Attention of prefill and forward goes through `ops.flash_attention`
     (the CUDA kernel for a CUDA tensor; with grad on, through its autograd
@@ -244,7 +246,8 @@ def forward(params: dict, tokens, cfg: TransformerConfig) -> torch.Tensor:
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in _layers(params, cfg.n_layers):
         if remat:
-            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, use_reentrant=False)
+            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, use_reentrant=False,
+                           context_fn=moe_lib.checkpoint_contexts)
         else:
             x = _prompt_layer(cfg, x, lp, cos, sin)
     return _head(params, x, cfg)

@@ -8,6 +8,9 @@ Tolerances: top-k indices, dispatch positions and kept slots equal exactly
 ≤ 64 in another order); the whole smoke models at `test_torch_transformer`'s
 2e-3, as `tests/test_models.py` holds the transformer."""
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,7 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Request
 
+ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 MOE_ARCHS = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
@@ -160,18 +164,28 @@ def test_capacity_and_route_log():
     assert C == moe.capacity(m, n) == 16 and int(counts.sum()) == n * m.top_k and int(counts[0]) == n
 
 
-def test_ep_shardmap_raises_and_train_refuses_moe():
+def test_ep_shardmap_raises():
     _, m, lp, x = _case("e8k2")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 9"):
         moe.moe_block(dataclasses.replace(m, impl="ep_shardmap"), _torch(lp), torch.from_numpy(x))
     assert m.padded_experts(16) == 16 and moe.MoEConfig(60, 4, 8).padded_experts(16) == 64
-    from repro_torch.launch.train import main, train
 
-    for arch in MOE_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 8"):
-            train(arch, smoke=True, steps=1, device="cpu", log_fn=lambda _: None)
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1"])
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_train_and_its_cli_train_the_moe_archs(arch):
+    """`launch.train.train` and `python -m repro_torch.launch.train` train
+    both smoke MoE archs for 2 steps (cross-entropy, as the reference)."""
+    from repro_torch.launch.train import train
+
+    losses = []
+    state = train(arch, smoke=True, steps=2, device="cpu", log_fn=lambda _: None,
+                  on_step=lambda st, metrics, batch: losses.append(float(metrics["loss"])))
+    assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
+    done = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+                           "--device", "cpu", "--steps", "2"], capture_output=True, text=True, cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert "[train] done at step 2" in done.stdout and "loss=" in done.stdout
 
 
 # ------------------------------ whole smoke models ------------------------------
