@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven paths, each driven with its kernels' launch counts set to 0 just
+Eight paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -25,6 +25,16 @@ before and read just after (the paper pipeline once more through its CLI):
   `--grid paper` at its own scale 0.01 (48 configurations, the four Table-2
   workloads), whose records must equal the reference package's committed
   numpy run (`BENCH_sweep.json`) field for field but the wall time;
+* the paper's multi-engine paths: 16 engines (the `paper` grid's count)
+  stacked on the card over amazon at its published size, through
+  `graph.distributed.DistributedEngine.run` (BFS, SSSP and PageRank on the
+  powerlaw partition under `DeviceMapper((4, 4))`'s site permutation and on
+  the random one; PageRank also with the bf16 exchange), the
+  "process_group" backend over NCCL at world size 1, and gin-tu (5 × 64)
+  at `ogb_products`' feature width (100) by halo exchange
+  (`models.gnn_dist.gin_forward_halo`); its kernel is `segment_spmm` (one
+  launch a PageRank step for all 16 engines' partials, one a halo GIN
+  layer);
 * LM serving: `repro_torch.launch.serve.build_engine` on llama3.2-3b at its
   published width and depth (28 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 128256; random weights from a seeded generator on the card), 4 slots,
@@ -107,6 +117,17 @@ Phases, one JSON line each:
              ELL and its transpose on the host, gradients against the scatter
              route's, 9 reduces a step, step ms, and the transposed reduce at
              D = 64 beside its bound and `torch.sparse.mm`
+  distributed  16 stacked engines on amazon: BFS/SSSP bit-equal to the
+             one-device `run`, PageRank within 1e-5 of the largest rank at
+             the same iteration count, the bf16 exchange within 2e-2; one
+             `segment_spmm` launch a PageRank step, none for BFS/SSSP, no
+             other kernel; n_local, e_local, iterations, ms a step and
+             exchange bytes a step for each algorithm and partition; NCCL at
+             world size 1 bit-equal to stacked P = 1; the halo GIN within
+             1e-4 of the one-device forward, its loss finite, 5 launches a
+             forward, `plan_sizes`, halo bytes an engine a layer, forward ms
+             and peak memory; the reduce at both new call sites against its
+             plain version and `torch.sparse.mm`, beside its bound
   cli        the sweep CLI: backpressure, faults (then resumed: byte-identical,
              no trace) and paper, each with a cold cache of its own; wall time
              and stage split a grid, one `segment_spmm` launch a PageRank
@@ -177,7 +198,8 @@ Phases, one JSON line each:
 
 Every line carries `seconds`, the time since the line before it.
 
-then the contract lines: one `{"kernels": [...]}` object (ell_spmm,
+then the contract lines: one `{"kernels": [...]}` object (ell_spmm with its
+`launches_distributed` and `distributed` call sites,
 flash_attention, flash_attention_bwd, embedding_bag; the attention rows
 with their `moe_train` launches, the backward's with `moe_train_shape`),
 the card's name and
@@ -327,6 +349,20 @@ GNN_CUTS = [
     "minibatch_lg (fanout-sampled batches) is not driven on the card",
 ]
 
+
+# the distributed phase: the paper grid's 16 engines stacked on the card, on
+# amazon; the DeviceMapper's torus for them
+DIST_ENGINES = 16
+DIST_TORUS = (4, 4)
+DIST_MAX_ITERATIONS = 200  # DistributedEngine.run's default, as the reference's
+# PageRank through the exchange against the one-device run at the same iteration
+# count, relative to the largest rank (ranks are ~3e-6 on amazon, so an absolute
+# bound says nothing): float32 sums of the same messages in another order (a
+# partial an engine, then a fold of 16), through ~40 iterations
+DIST_PAGERANK_REL = 1e-5
+# the bf16 exchange rounds every partial to 8 significant bits each step
+# (2^-9 relative); the fixed point it settles at moves by a few of those
+DIST_BF16_REL = 2e-2
 
 _LAST_LINE = [time.perf_counter()]
 
@@ -1347,6 +1383,289 @@ def phase_gnn(device: torch.device, graph, seed: int, smi: str | None, timer: Ti
                   "cols and the output once over 3.35 TB/s",
     }
     say("gnn", **out)
+    return out, launches
+
+
+# --------------------------------------------------------------------------- distributed
+
+
+def counted(fn):
+    """`fn()` with every kernel wrapper's launch count set to 0 just before
+    and read just after (a synchronise between): the result and the counts."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.segment_spmm.ops import ell_spmm, segment_spmm
+
+    wrappers = {"segment_spmm": segment_spmm, "ell_spmm": ell_spmm, "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd, "embedding_bag": embedding_bag}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def check_only_reduces(counts: dict, reduces: int, what: str) -> int:
+    """`counts` must be `reduces` launches of `segment_spmm` and none of any
+    other kernel; returns `reduces`."""
+    want = {k: (reduces if k == "segment_spmm" else 0) for k in counts}
+    check(counts == want, f"{what}: launch counts {counts}, want {want}")
+    return reduces
+
+
+def library_csr(ell, n: int):
+    """The (n, n) CSR matrix whose product with x is the reduce over `ell`
+    (row v holds v's ELL row), for `torch.sparse.mm`."""
+    work = ell.work()
+    widths = torch.cat([torch.full((int(r.shape[0]),), w, dtype=torch.int64, device=work.rows.device)
+                        for r, w in zip(ell.rows, ell.widths)])
+    rows = torch.repeat_interleave(work.rows.long(), widths)
+    cols = work.cols.long()
+    vals = torch.ones(cols.shape, device=cols.device) if work.weights is None else work.weights
+    real = (rows < n) & (cols < n)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Sparse")  # torch's beta notices
+        a = torch.sparse_coo_tensor(torch.stack([rows[real], cols[real]]), vals[real], (n, n)).coalesce()
+        return a.to_sparse_csr()
+
+
+def call_site_check(ell, x: torch.Tensor, timer: Timer, bound) -> dict:
+    """The fused reduce at a new call site against its plain version on the
+    same inputs (F32_TOL) and `torch.sparse.mm`, two runs bit-equal; its time
+    beside `bound(x, ell)`, the plain version's and the library call's."""
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+
+    with torch.inference_mode():
+        got, again = segment_spmm(x, ell), segment_spmm(x, ell)
+        want = segment_spmm_ref(x, ell)
+        torch.cuda.synchronize()
+        r = {"N": x.shape[0], "D": x.shape[1], "max_abs_err": float((got - want).abs().max()),
+             "bit_equal_two_runs": bool(torch.equal(got, again))}
+        check(torch.allclose(got, want, **F32_TOL), f"reduce at N={x.shape[0]}, D={x.shape[1]} vs its plain version")
+        check(r["bit_equal_two_runs"], "two runs of the reduce differ")
+        del again, want
+        a = library_csr(ell, x.shape[0])
+        lib = torch.sparse.mm(a, x)
+        r["max_abs_err_vs_library"] = float((got - lib).abs().max())
+        check(torch.allclose(got, lib, **GIN_REDUCE_TOL), "reduce vs torch.sparse.mm")
+        del got, lib
+        torch.cuda.empty_cache()
+        r["ms"] = timer.device_ms(lambda: segment_spmm(x, ell), calls=5, reps=5)
+        r["call_ms"] = timer.call_ms(lambda: segment_spmm(x, ell), calls=5, reps=5)
+        r["plain_ms"] = timer.call_ms(lambda: segment_spmm_ref(x, ell), calls=1, reps=3)
+        r["library_ms"] = timer.call_ms(lambda: torch.sparse.mm(a, x), calls=5, reps=5)
+        r["bound_ms"], r["bound_by"] = bound(x, ell)
+    del a
+    torch.cuda.empty_cache()
+    return r
+
+
+def engine_runs(device: torch.device, graph, parts: dict, timer: Timer, seed: int) -> tuple[dict, int, dict]:
+    """BFS, SSSP and PageRank through `DistributedEngine.run` on each of
+    `parts` ({name: (partition, site permutation)}) against the one-device
+    `run`, the bf16 exchange for PageRank, and a step of each timed.
+    Returns the numbers, the checked runs' `segment_spmm` launches and the
+    reduce at the partials' call site."""
+    from repro_torch.graph import algorithms as alg
+    from repro_torch.graph.distributed import DistributedEngine, ShardedVertexGraph, make_engines_mesh, partial_ell
+    from repro_torch.graph.vertex_program import run
+
+    launches, algos, site = 0, {}, None
+    for name in ("bfs", "sssp", "pagerank"):
+        g = alg.prepare_graph(name, graph)
+        program = alg.ALGORITHMS[name]
+        one = run(g, program(), device=device)
+        rec: dict = {"one_device_iterations": one.num_iterations}
+        for pn, (part, perm) in parts.items():
+            mesh = make_engines_mesh(perm, num_engines=DIST_ENGINES, device=device)
+            eng = DistributedEngine(program(), mesh)
+            # PageRank is held at the one-device run's iteration count (its
+            # convergence test reads a sum that the empty slots and the
+            # order of additions move in the last bits)
+            cap = one.num_iterations if name == "pagerank" else DIST_MAX_ITERATIONS
+            t0 = time.perf_counter()
+            (got, it), counts = counted(lambda: eng.run(g, part, max_iterations=cap))
+            r = {"iterations": it, "run_s": time.perf_counter() - t0}
+            r["segment_spmm_launches"] = check_only_reduces(
+                counts, it if name == "pagerank" else 0, f"{name} ({pn}) on {DIST_ENGINES} engines")
+            launches += r["segment_spmm_launches"]
+            if name == "pagerank":
+                at = one if it == one.num_iterations else run(g, program(), max_iterations=it, device=device)
+                check(at.num_iterations == it, f"pagerank ({pn}): {it} iterations, one device {at.num_iterations}")
+                r["max_abs_err_rel_to_largest_rank"] = float(np.abs(got - at.props).max() / at.props.max())
+                check(r["max_abs_err_rel_to_largest_rank"] <= DIST_PAGERANK_REL,
+                      f"pagerank ({pn}): {r['max_abs_err_rel_to_largest_rank']} of the largest rank")
+                eng16 = DistributedEngine(program(), mesh, comm_dtype=torch.bfloat16)
+                t0 = time.perf_counter()
+                (got16, it16), counts = counted(lambda: eng16.run(g, part, max_iterations=DIST_MAX_ITERATIONS))
+                r["bf16"] = {"iterations": it16, "run_s": time.perf_counter() - t0,
+                             "segment_spmm_launches": check_only_reduces(counts, it16, f"pagerank bf16 ({pn})"),
+                             "max_abs_err_rel_to_largest_rank": float(np.abs(got16 - one.props).max()
+                                                                      / one.props.max())}
+                launches += it16
+                check(r["bf16"]["max_abs_err_rel_to_largest_rank"] <= DIST_BF16_REL,
+                      f"pagerank bf16 ({pn}): {r['bf16']['max_abs_err_rel_to_largest_rank']} of the largest rank")
+            else:
+                check(np.array_equal(got, one.props), f"{name} ({pn}): {DIST_ENGINES} stacked engines vs one device")
+                r["bit_equal_one_device"] = True
+            # one step timed alone (not counted: the run above is the path)
+            sg = ShardedVertexGraph.build(g, part)
+            r.update(n_local=sg.n_local, e_local=sg.e_local, rehomed_edges=sg.rehomed_edges,
+                     exchange_bytes_a_step=sg.exchange_bytes(4))
+            if name == "pagerank":
+                r["bf16"]["exchange_bytes_a_step"] = sg.exchange_bytes(2)
+            props, active = eng.init_state(sg, 0)
+            step = eng.step_fn(sg, {k: v for k, v in eng.program.make_aux(g).items() if np.ndim(v) == 0})
+            with torch.inference_mode():
+                r["ms_a_step"] = timer.call_ms(lambda: step(props, active), calls=10, reps=5)
+                r["device_ms_a_step"] = timer.device_ms(lambda: step(props, active), calls=10, reps=5)
+            if name == "pagerank" and pn == "powerlaw":
+                # the new call site of the reduce: the 16 engines' partials, one block-diagonal ELL, D = 1
+                ell = partial_ell(sg, np.arange(DIST_ENGINES), device)
+                x = torch.zeros((ell.num_nodes, 1), device=device)
+                gen = torch.Generator(device).manual_seed(seed)
+                x[: DIST_ENGINES * sg.n_local] = torch.rand((DIST_ENGINES * sg.n_local, 1), device=device,
+                                                            generator=gen)
+                site = call_site_check(ell, x, timer, reduce_bound_ms)
+                del ell, x
+            del props, active, step, sg
+            rec[pn] = r
+        algos[name] = rec
+    torch.cuda.empty_cache()
+    return algos, launches, site
+
+
+def nccl_world_one(device: torch.device, graph) -> tuple[dict, int]:
+    """PageRank over the "process_group" backend, NCCL at world size 1 from a
+    `file://` store in a temporary directory, against the stacked backend at
+    P = 1: bit-equal, the same iterations.  The group is destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.partition import powerlaw_partition
+    from repro_torch.graph import algorithms as alg
+    from repro_torch.graph.distributed import DistributedEngine, make_engines_mesh
+
+    g = alg.prepare_graph("pagerank", graph)
+    part = powerlaw_partition(g.src, g.dst, g.num_nodes, 1)
+    stacked = DistributedEngine(alg.pagerank_program(), make_engines_mesh(num_engines=1, device=device))
+    (want, want_it), counts = counted(lambda: stacked.run(g, part))
+    launches = check_only_reduces(counts, want_it, "pagerank, stacked P = 1")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = make_engines_mesh(backend="process_group", device=device)
+            t0 = time.perf_counter()
+            (got, it), counts = counted(lambda: DistributedEngine(alg.pagerank_program(), mesh).run(g, part))
+            run_s = time.perf_counter() - t0
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    launches += check_only_reduces(counts, it, "pagerank, NCCL P = 1")
+    r = {"backend": backend, "world_size": 1, "iterations": it, "stacked_iterations": want_it, "run_s": run_s,
+         "bit_equal_stacked": bool(np.array_equal(got, want) and it == want_it)}
+    check(r["bit_equal_stacked"], "pagerank over NCCL at world size 1 vs the stacked backend at P = 1")
+    return r, launches
+
+
+def halo_gin(device: torch.device, graph, perm: np.ndarray, seed: int, timer: Timer) -> tuple[dict, int, dict]:
+    """gin-tu (published width and depth) at `ogb_products`' feature width by
+    halo exchange over DIST_ENGINES stacked engines against the one-device
+    `gnn.forward` on the same weights; sizes, bytes, time and peak memory.
+    Returns the numbers, the forward's launches and the reduce at the halo
+    sum's call site (D = d_in)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import GraphBatcher, to_device
+    from repro_torch.graph.distributed import make_engines_mesh
+    from repro_torch.graph.halo import build_halo_plan, plan_sizes
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn_dist import gin_forward_halo, gin_halo_loss_fn, pack_batch, shard_batch
+
+    cfg = get_arch(GNN_ARCH).model_config(GNN_WIDE_CELL)
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    plan = build_halo_plan(graph.src, graph.dst, n, DIST_ENGINES)
+    plan_s = time.perf_counter() - t0
+    host = GraphBatcher(graph, d_feat=cfg.d_in, n_classes=cfg.d_out, seed=seed).full_batch()
+    mesh = make_engines_mesh(perm, num_engines=DIST_ENGINES, device=device)
+    t0 = time.perf_counter()
+    batch = shard_batch(pack_batch(plan, host["x"], host["labels"], host["train_mask"]), mesh)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    params = gnn.init_params(cfg, seed, device=device)
+    r = {"arch": GNN_ARCH, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden, "d_in": cfg.d_in,
+         "plan": plan_sizes(plan), "plan_host_s": plan_s, "shard_batch_host_s": shard_s,
+         "halo_bytes_an_engine_a_layer": {f"D{d}": plan.halo_bytes_per_device(d)
+                                          for d in (cfg.d_in, cfg.d_hidden)},
+         "ext_rows_bytes": {f"D{d}": DIST_ENGINES * plan.ext_size * d * 4 for d in (cfg.d_in, cfg.d_hidden)}}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits, counts = counted(lambda: gin_forward_halo(params, batch, cfg, mesh))
+        r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["forward_peak_above_inputs_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = check_only_reduces(counts, cfg.n_layers, "a halo GIN forward")
+        r["segment_spmm_launches_a_forward"] = launches
+        loss = float(gin_halo_loss_fn(params, batch, cfg, mesh))
+        r["loss"] = loss
+        check(np.isfinite(loss), f"halo GIN loss {loss}")
+        r["forward_ms"] = timer.call_ms(lambda: gin_forward_halo(params, batch, cfg, mesh), calls=3, reps=5)
+        got = np.zeros((n, cfg.d_out), np.float32)
+        ok = plan.slot_to_vertex >= 0
+        got[plan.slot_to_vertex[ok]] = logits.cpu().numpy()[ok]
+        del logits
+        full = to_device(host, device)
+        full["ell"] = gnn.batch_ell(host, device=device)
+        want = gnn.forward(params, full, cfg).cpu().numpy()
+        r["max_abs_err_vs_one_device"] = float(np.abs(got - want).max())
+        check(np.allclose(got, want, **GNN_TOL), f"halo GIN vs one device: {r['max_abs_err_vs_one_device']}")
+        r["one_device_forward_ms"] = timer.call_ms(lambda: gnn.forward(params, full, cfg), calls=3, reps=5)
+        del full, want
+        torch.cuda.empty_cache()
+        # the new call site of the reduce: the halo sum's block-diagonal ELL over the extended rows
+        gen = torch.Generator(device).manual_seed(seed)
+        x = torch.randn((batch["ell"].num_nodes, cfg.d_in), device=device, generator=gen)
+        site = call_site_check(batch["ell"], x, timer, lambda x, ell: (gin_reduce_bound_ms(x, ell), "bytes"))
+    del batch, params, x
+    torch.cuda.empty_cache()
+    return r, launches, site
+
+
+def phase_distributed(device: torch.device, graph, seed: int, smi: str | None, timer: Timer) -> tuple[dict, int]:
+    """The paper's multi-engine paths, DIST_ENGINES engines stacked on the
+    card (`engine_runs`, `nccl_world_one`, `halo_gin`).  Returns the numbers
+    and the checked runs' `segment_spmm` launches."""
+    from repro_torch.core.mapping import DeviceMapper
+    from repro_torch.core.partition import random_partition
+
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    perm, part, h_opt, h_id = DeviceMapper(DIST_TORUS).device_permutation(graph.src, graph.dst, n)
+    mapper_s = time.perf_counter() - t0
+    parts = {"powerlaw": (part, perm), "random": (random_partition(graph.src, graph.dst, n, DIST_ENGINES), None)}
+    algos, launches, site_pr = engine_runs(device, graph, parts, timer, seed)
+    nccl, nccl_launches = nccl_world_one(device, graph)
+    halo, halo_launches, site_halo = halo_gin(device, graph, perm, seed, timer)
+    launches += nccl_launches + halo_launches
+    out = {
+        "engines": DIST_ENGINES, "nodes": n, "edges": graph.num_edges, "card": smi,
+        "mapper": {"torus": list(DIST_TORUS), "site_permutation": perm.tolist(), "hops_identity": h_id,
+                   "hops_optimized": h_opt, "host_s": mapper_s},
+        "algorithms": algos, "nccl": nccl, "halo_gin": halo,
+        "reduce_call_sites": {"pagerank_partials": site_pr, "halo_gin": site_halo},
+        "segment_spmm_launches": launches,
+        "tolerance": {"pagerank_rel_to_largest_rank": DIST_PAGERANK_REL,
+                      "pagerank_bf16_rel_to_largest_rank": DIST_BF16_REL, "halo_gin_vs_one_device": GNN_TOL,
+                      "reduce_vs_plain": F32_TOL, "reduce_vs_library": GIN_REDUCE_TOL},
+        "timing": "ms_a_step: one step enqueued back to back, CUDA events over 10 (median of 5); "
+                  "device_ms_a_step: the same replayed from a CUDA graph; run_s: host clock around "
+                  "DistributedEngine.run (host build of the sharded graph and ELL included); forward_ms: CUDA "
+                  "events over 3 forwards; exchange bytes: P·P·n_local·itemsize a step, a copy on one card",
+    }
+    say("distributed", **out)
     return out, launches
 
 
@@ -3260,6 +3579,8 @@ def main() -> int:
                                 scale=scale, seed=args.seed)
     _, faults_launches = phase_faults(device, fgrid, graph, info["nvidia_smi"])
     gnn, gnn_launches = phase_gnn(device, graph, args.seed, info["nvidia_smi"], timer)
+    torch.cuda.empty_cache()
+    dist_out, dist_launches = phase_distributed(device, graph, args.seed, info["nvidia_smi"], timer)
     del graph, small
     _, cli_launches = phase_cli(info["nvidia_smi"])
     torch.cuda.empty_cache()
@@ -3290,6 +3611,14 @@ def main() -> int:
         "launches_per_reduce": kern["launches_per_reduce"], "entry": "segment_spmm_launch (every bucket, one launch)",
         "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
         "launches_gnn": gnn_launches, "launches_train": train_launches["segment_spmm"],
+        "launches_distributed": dist_launches,
+        "distributed": {
+            "pagerank_partials": {"shape": f"{DIST_ENGINES} stacked engines' PageRank partials on amazon (powerlaw "
+                                           "partition): one block-diagonal ELL, PageRank weights, D=1, f32",
+                                  **dist_out["reduce_call_sites"]["pagerank_partials"]},
+            "halo_gin": {"shape": f"gin-tu's halo sum on amazon over {DIST_ENGINES} stacked engines: the extended "
+                                  "rows' block-diagonal ELL, weights 1, D=100, f32",
+                         **dist_out["reduce_call_sites"]["halo_gin"]}},
         "gin_transpose": {"shape": f"the transposed reduce of gin-tu's backward on amazon (ELL of the unreversed "
                                    f"edges, weights 1) at D={gnn['amazon']['train']['transpose_reduce']['D']}, f32",
                           **{k: gnn["amazon"]["train"]["transpose_reduce"][k] for k in (

@@ -4,10 +4,12 @@ and recsys parts of `repro.configs.base`.
 An `LmArch`, `GnnArch` or `RecsysArch` knows its published configuration
 (`model_config()`, a GNN's for one `GNN_SHAPES` cell), a reduced
 `smoke_config()` the CPU tests run, and `model_flops(cell)`, the useful-FLOPs
-yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case, no mesh
-and no sharding here: those are multi-device work (ROADMAP.md Queue A 9), and
-the dry-run's batch specs (`GnnArch.batch_specs`, ShapeDtypeStructs and
-PartitionSpecs) belong to the tooling of Queue A 10.
+yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case, no
+production mesh and no sharding rules here: those are ROADMAP.md Queue A 9b
+(the graph half of multi-device work is ported: `graph/distributed.py` and
+`models/gnn_dist.py` on a 1-D engine mesh), and the dry-run's batch specs
+(`GnnArch.batch_specs`, ShapeDtypeStructs and PartitionSpecs) belong to the
+tooling of Queue A 10.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
 """End-to-end mapping pipeline: graph → partition → traffic → placement.
 
 `map_graph` is the paper's full §5 flow in one call; `DeviceMapper` is the
-TPU-level adaptation (Level B in DESIGN.md): it treats the flattened device
-mesh of a pod as the NoC, uses the same partitioner to shard a graph over
-devices, and the same placement objective to choose which logical shard lands
-on which physical chip — the permutation it returns is applied to device
-orderings before `jax.sharding` sees them, so `shard_map` collectives run over
-neighbouring chips for the heavy flows.
+device-level adaptation (Level B in DESIGN.md): it treats the devices of an
+engine mesh as the NoC, uses the same partitioner to shard a graph over
+them, and the same placement objective to choose which logical shard lands
+on which physical device — the permutation it returns is the
+`site_permutation` of `graph.distributed.make_engines_mesh`, so the mesh's
+exchange runs over neighbouring devices for the heavy flows.
 """
 from __future__ import annotations
 
@@ -87,7 +87,8 @@ def map_graph(
 
 
 class DeviceMapper:
-    """Applies the paper's mapping to a JAX device mesh (Level B).
+    """Applies the paper's mapping to the port's engine mesh (Level B): its
+    permutation is `graph.distributed.make_engines_mesh`'s `site_permutation`.
 
     The pod's chips form a physical torus; a graph sharded over `n_devices`
     engines has one *merged* shard per device (on TPU the four structures

@@ -8,7 +8,9 @@ the forwards line for line: SiLU MLPs with a bias-free LayerNorm (eps 1e-6),
 GAT's leaky-ReLU(0.2) edge softmax and head average, PNA's aggregators and
 degree scalers, GraphCast's interaction blocks with residuals.  What does
 not: `MeshRules` and its activation constraints (identities on one device;
-sharding is ROADMAP.md Queue A 9).
+`MeshRules` is ROADMAP.md Queue A 9b).  GIN over P engines by halo exchange
+is `models.gnn_dist`; the vertex-centric engine over P engines is
+`graph.distributed`.
 
 Message passing is an edge-index gather and a segment reduce with static
 shapes: padded edges point at the sentinel row N and are masked.  The

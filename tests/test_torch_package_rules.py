@@ -51,7 +51,9 @@ def test_the_walk_sees_the_package():
                  "src/repro_torch/models/gnn.py", "src/repro_torch/graph/sampler.py",
                  "src/repro_torch/configs/gin_tu.py", "src/repro_torch/configs/gat_cora.py",
                  "src/repro_torch/configs/pna.py", "src/repro_torch/configs/graphcast.py",
-                 "tools/gnn_full_scale.py", "tools/gnn_reduce_hub.py", "tools/lm_train_step.py"):
+                 "tools/gnn_full_scale.py", "tools/gnn_reduce_hub.py", "tools/lm_train_step.py",
+                 "src/repro_torch/graph/distributed.py", "src/repro_torch/graph/halo.py",
+                 "src/repro_torch/models/gnn_dist.py"):
         assert must in names
     for cu in ("ell_spmm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "embedding_bag.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / cu).is_file()
@@ -141,6 +143,10 @@ def test_entry_points_default_to_the_card():
     from repro_torch.nocsim.model import build_schedule, simulate_contended
     from repro_torch.data.pipeline import GraphBatcher
     from repro_torch.models import gnn
+    from repro_torch.core.partition import powerlaw_partition
+    from repro_torch.graph.distributed import DistributedEngine, EngineMesh, make_engines_mesh
+    from repro_torch.graph.halo import build_halo_plan
+    from repro_torch.models.gnn_dist import gin_forward_halo, pack_batch, shard_batch
     import numpy as np
 
     g = rmat(64, 256, seed=0)
@@ -155,6 +161,13 @@ def test_entry_points_default_to_the_card():
     assert open_step() is open_step("auto") is open_step("torch") is _open_step_torch
     with pytest.raises(ValueError, match="unknown backend"):
         open_step("jax")
+    # plans and packed batches stay host numpy; a mesh made for the card sends the entry points there
+    card_mesh = EngineMesh(2, torch.device("cuda"))
+    plan = build_halo_plan(g.src, g.dst, 64, 2)
+    packed = pack_batch(plan, np.ones((64, 4), np.float32), np.zeros(64, np.int32), np.ones(64, bool))
+    cpu_batch = shard_batch(packed, make_engines_mesh(num_engines=2, device="cpu"))
+    gin_cfg = get_arch("gin-tu").smoke_config()
+    gin_params = gnn.init_params(gin_cfg, device="cpu")
     calls = [
         lambda: run(g, alg.bfs_program()),
         lambda: run_traced(g, alg.bfs_program()),
@@ -180,6 +193,11 @@ def test_entry_points_default_to_the_card():
         lambda: run_main(["--grid", "minifaults", "--backend", "numpy", "-q"]),
         lambda: gnn.init_params(get_arch("gin-tu").smoke_config()),
         lambda: gnn.batch_ell(GraphBatcher(g, d_feat=4, n_classes=2).full_batch()),
+        lambda: make_engines_mesh(),
+        lambda: make_engines_mesh(num_engines=4),
+        lambda: DistributedEngine(alg.bfs_program(), card_mesh).run(g, powerlaw_partition(g.src, g.dst, 64, 2)),
+        lambda: shard_batch(packed, card_mesh),
+        lambda: gin_forward_halo(gin_params, cpu_batch, gin_cfg, card_mesh),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
