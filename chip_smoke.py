@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight paths, each driven with its kernels' launch counts set to 0 just
+Nine paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -83,7 +83,19 @@ before and read just after (the paper pipeline once more through its CLI):
   qwen2-moe-a2.7b at its published width over 2 of its 24 layers for 5
   steps (the shared expert's and its gate's backward); its kernels are
   `flash_attention` (twice a layer a step) and `flash_attention_bwd`
-  (once a layer a step, at group 1 and dh 128).
+  (once a layer a step, at group 1 and dh 128);
+* the model paths on a 2-D engine mesh: 16 engines stacked on the card over
+  ("data", "model") = (2, 8) (`graph.distributed.make_mesh`): olmoe-1b-7b
+  at its published width and depth and qwen2-moe-a2.7b over 4 layers
+  served through `build_engine(..., mesh=)` with expert parallelism
+  (`impl="ep_shardmap"`: two exchanges over "model" a layer, 64 experts
+  padded from qwen's 60), beside the local path on the same weights; one
+  olmoe layer on `launch.mesh.make_production_mesh()` (256 engines); the
+  "process_group" backend over NCCL at world size 1; dcn-v2 at its
+  published size with `lookup_impl="psum_model"` (its tables row-sharded
+  over "model" by `models.sharding.shard_tensor`): `serve_bulk` and 5
+  `train_batch` steps; its kernels are `flash_attention` (every EP prefill
+  layer) and `embedding_bag` (one launch a lookup over the sharded slab).
 
 Phases, one JSON line each:
 
@@ -195,13 +207,32 @@ Phases, one JSON line each:
              `expert_device_permutation` (EP 8 on a 2 × 4 torus: hop
              reduction and load balance a layer); qwen2-moe-a2.7b's
              losses, launches (the backward's on the same route) and peak
+  mesh_models  the model paths on a 2-D mesh: olmoe-1b-7b and qwen2-moe
+             drained with EP and with the local path (prefill tokens/s,
+             decode ms a step, attention launches), two EP prefills
+             bit-equal, the longest prompt's Cs, Ce, share of slots dropped
+             in each stage by layer and all-to-all bytes a layer, the padded
+             experts' slots (0), a decode step dropping nothing, a float32
+             prefill of 2,048 tokens EP against local within 2e-3 at
+             capacity factor E/k (nothing can drop), olmoe's first two
+             float32 layers at 1.25 (slots drop in both stages) against the
+             plain per-engine loop `moe_ep_loop_ref` (the same slots kept,
+             outputs within 1e-4); one olmoe layer on the production mesh (Cs 8) against local; dcn-v2
+             `serve_bulk` logits of `psum_model` bit-equal to the gather's,
+             one bag launch a lookup, 5 training losses within 1e-6 and the
+             unsharded table gradient within 1e-6 of its largest entry, the
+             bag at the slab's shape against its plain version, its bound
+             and `F.embedding_bag`; NCCL at world size 1 bit-equal to
+             stacked (1, 1)
 
 Every line carries `seconds`, the time since the line before it.
 
 then the contract lines: one `{"kernels": [...]}` object (ell_spmm with its
 `launches_distributed` and `distributed` call sites,
 flash_attention, flash_attention_bwd, embedding_bag; the attention rows
-with their `moe_train` launches, the backward's with `moe_train_shape`),
+with their `moe_train` launches, the backward's with `moe_train_shape`,
+the forward's with `launches_mesh_models`, the bag's with its
+`psum_model` call site),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -2895,9 +2926,9 @@ def moe_inputs_seen(layers=None):
 
     seen = []
 
-    def grab(m, lp, x):
+    def grab(m, lp, x, *, mesh=None):
         seen.append((lp, x.clone()) if layers is None or len(seen) in layers else None)
-        return moe_lib.moe_block(m, lp, x)
+        return moe_lib.moe_block(m, lp, x, mesh=mesh)
 
     tfm.moe_lib = types.SimpleNamespace(moe_block=grab, checkpoint_contexts=moe_lib.checkpoint_contexts)
     try:
@@ -3530,6 +3561,507 @@ def phase_moe_train(device: torch.device, seed: int, smi: str | None, timer: Tim
 # --------------------------------------------------------------------------- main
 
 
+# --------------------------------------------------------------------------- the model paths on a 2-D mesh
+
+# olmoe-1b-7b at its published width and depth and qwen2-moe-a2.7b (4 of 24 layers) served with expert
+# parallelism (impl="ep_shardmap") on 16 engines stacked on the card over ("data", "model") = (2, 8), the
+# moe phase's traffic; one olmoe layer on the production mesh (16, 16); dcn-v2 at its published size with
+# the psum_model lookup on the same (2, 8) mesh; NCCL at world size 1 on (1, 1)
+MESH_SHAPE, MESH_AXES = (2, 8), ("data", "model")
+MESH_TURNS = ("local", "ep", "ep", "local")  # the two routes timed in turns on the same card
+# the float32 prefill, EP against local, is held at capacity_factor E/k, where no expert and no engine can
+# overflow (at 4.0 the local path drops slots of this prompt, so the two would keep different slots)
+MESH_F32_PROMPT = 2048
+MESH_F32_TOL = 2e-3  # float32 logits, EP against local, where neither drops a slot
+# the drop path at the config's capacity_factor: these float32 layers, on their inputs in a float32 EP prefill
+# of the same prompt, against the plain per-engine loop (moe_ep_loop_ref): the same slots kept, outputs within
+MESH_LOOP_LAYERS, MESH_LOOP_TOL = (0, 1), dict(rtol=1e-4, atol=1e-4)
+MESH_PROD_TOKENS = 512  # n_l = 2 on 256 engines: Cs at its floor of 8, no slot can drop in EP
+MESH_PROD_TOL = dict(rtol=1e-4, atol=1e-4)  # one float32 layer: the expert products over other row counts
+MESH_DCN_STEPS = 5
+MESH_DCN_LOSS_TOL = 1e-6
+# the unsharded table gradient against the gather's, of its largest entry, with deterministic adds (the
+# atomic adds of training differ by ~5e-7 of it from run to run: reported beside)
+MESH_DCN_GRAD_REL = 1e-6
+
+
+def ep_stats(log: list, m, ep: int, n_tokens: int, d_model: int, itemsize: int) -> dict:
+    """From one call's `moe_block.ep_log` (an `EpRoute` a layer): each layer's
+    share of routed slots dropped in stage 1 and of those kept dropped in
+    stage 2, the slots the padded experts got, and the all-to-all bytes a
+    layer (tokens there and outputs back, 2·engines·ep·Cs·d·itemsize, and the
+    expert ids)."""
+    e_l = m.padded_experts(ep) // ep
+    s1, s2, padded = [], [], 0
+    for r in log:
+        c1, c2 = r.stage1.cpu(), r.stage2.cpu()
+        slots = int(c1.sum())
+        drop1 = int((c1 - r.Cs).clamp_min(0).sum())
+        drop2 = int((c2[:, :e_l] - r.Ce).clamp_min(0).sum())
+        s1.append(drop1 / slots)
+        s2.append(drop2 / max(slots - drop1, 1))
+        experts = c2[:, :e_l].reshape(-1, ep * e_l)  # (data rows, padded experts) in expert order
+        padded += int(experts[:, m.num_experts:].sum())
+    engines = log[0].stage1.shape[0]
+    Cs, Ce = log[0].Cs, log[0].Ce
+    return {"tokens": n_tokens, "Cs": Cs, "Ce": Ce, "layers": len(log),
+            "stage1_dropped_share_by_layer": [round(v, 6) for v in s1],
+            "stage2_dropped_share_by_layer": [round(v, 6) for v in s2],
+            "stage1_dropped_share_mean": float(np.mean(s1)), "stage2_dropped_share_mean": float(np.mean(s2)),
+            "padded_experts": m.padded_experts(ep) - m.num_experts, "padded_expert_slots": padded,
+            "all_to_all_bytes_a_layer": 2 * engines * ep * Cs * d_model * itemsize,
+            "expert_id_bytes_a_layer": engines * ep * Cs * 8}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """`torch.use_deterministic_algorithms(True)` inside the block, warnings
+    only (cuBLAS asks for a workspace setting to promise it), then as before."""
+    was = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def ep_logged(fn):
+    """(fn()'s result, the `EpRoute`s its MoE layers logged)."""
+    from repro_torch.models.moe import moe_block
+
+    moe_block.ep_log = log = []
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        moe_block.ep_log = None
+    return out, log
+
+
+def local_dropped(fn) -> tuple:
+    """(fn()'s result, slots its local-path MoE layers dropped)."""
+    from repro_torch.models.moe import moe_block
+
+    moe_block.route_log = log = []
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        moe_block.route_log = None
+    return out, sum(int((c - C).clamp_min(0).sum()) for C, c in log)
+
+
+def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, mesh, *,
+               f32_check: bool) -> tuple[dict, dict | None]:
+    """One MoE model served through `build_engine` twice on the same bf16
+    weights: impl="local", then impl="ep_shardmap" on `mesh` (each drained
+    with the prompts, timed); for EP the attention launches, the routes of
+    the longest prompt's prefill and of a decode step, and two prefills
+    bit-equal; with `f32_check` a float32 prefill of one prompt, EP against
+    local at capacity_factor E/k, and the layers MESH_LOOP_LAYERS at the
+    config's against the plain per-engine loop.  Returns (the model's entry,
+    layer 0's float32 weights or None)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+
+    m, L = cfg.moe, cfg.n_layers
+    ep = mesh.shape[m.ep_axis]
+    ep_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"))
+    t0 = time.perf_counter()
+    params32 = tfm.init_params(cfg, seed, device=device)
+    params = tfm.cast_params(params32, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs = {"local": [], "ep": []}
+    for name in MESH_TURNS:
+        c = ep_cfg if name == "ep" else cfg
+        engine = build_engine(c, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device,
+                              mesh=mesh if name == "ep" else None)
+        engine.cache, _ = engine.prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
+        _, engine.cache = engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
+                                        torch.zeros(SERVE_SLOTS, dtype=torch.long))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        done, st, wall_s, launches = drain_timed(engine, prompts, new_tokens)
+        check(len(done) == len(prompts) and st["finite"], f"{cfg.name} {name}: {len(done)} drained, finite "
+              f"{st['finite']}")
+        check(launches == L * len(prompts), f"{cfg.name} {name}: flash_attention launched {launches} times, "
+              f"want {L} a prefill × {len(prompts)}")
+        runs[name].append({"wall_s": wall_s, "prefill_tokens": st["prefill_tokens"],
+                      "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+                      "decode_steps": st["decode_steps"], "decode_ms_a_step": st["decode_s"] / st["decode_steps"] * 1e3,
+                      "decode_tok_s": st["decode_tokens"] / st["decode_s"], "flash_attention_launches": launches,
+                      "new_tokens": [len(r.out_tokens) for r in sorted(done, key=lambda r: r.uid)],
+                           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if name == "ep" and len(runs["ep"]) == 1:
+            longest = max(prompts, key=len)
+            toks = torch.from_numpy(longest[None, :].astype(np.int64)).to(device)
+
+            def one_prefill():
+                cache = tfm.init_kv_cache(c, 1, toks.shape[1], dtype=torch.float32, device=device)
+                return tfm.prefill(params, toks, cache, c, mesh=mesh)[0], cache
+
+            (la, ca), log = ep_logged(one_prefill)
+            lb, cb = one_prefill()
+            torch.cuda.synchronize()
+            bit_equal = bool(torch.equal(la, lb) and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]))
+            check(bit_equal, f"{cfg.name}: two EP prefills of one prompt differ")
+            prefill_routes = ep_stats(log, m, ep, toks.shape[1], cfg.d_model, 2)
+            pos = torch.from_numpy(engine.pos.astype(np.int64)).to(device)
+            _, dlog = ep_logged(lambda: engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long,
+                                                                                  device=device), pos))
+            decode_routes = ep_stats(dlog, m, ep, SERVE_SLOTS, cfg.d_model, 2)
+            check(prefill_routes["padded_expert_slots"] == 0 and decode_routes["padded_expert_slots"] == 0,
+                  f"{cfg.name}: a padded expert got a slot")
+            check(decode_routes["stage1_dropped_share_mean"] == 0 and decode_routes["stage2_dropped_share_mean"] == 0,
+                  f"{cfg.name}: an EP decode step dropped a slot")
+            ep_checks = {"prefills_bit_equal": bit_equal, "routes_longest_prefill": prefill_routes,
+                         "routes_decode_step": {k: decode_routes[k] for k in (
+                             "tokens", "Cs", "Ce", "stage1_dropped_share_mean", "stage2_dropped_share_mean",
+                             "padded_expert_slots", "all_to_all_bytes_a_layer")}}
+            del la, lb, ca, cb, one_prefill
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "experts": m.num_experts, "top_k": m.top_k,
+           "d_ff_expert": m.d_ff_expert, "d_ff_shared": m.d_ff_shared, "capacity_factor": m.capacity_factor,
+           "padded_experts": m.padded_experts(ep), "experts_an_engine": m.padded_experts(ep) // ep,
+           "mesh": dict(mesh.shape), "engines": mesh.num_engines, "backend": mesh.backend,
+           "activations": "bfloat16", "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
+           "setup_s": setup_s, "turns": list(MESH_TURNS), "local": {"runs": runs["local"]},
+           "ep": {"runs": runs["ep"], **ep_checks},
+           "prefill_tok_s": {k: float(np.mean([r["prefill_tok_s"] for r in v])) for k, v in runs.items()},
+           "decode_ms_a_step": {k: float(np.mean([r["decode_ms_a_step"] for r in v])) for k, v in runs.items()}}
+    out["ep_vs_local_prefill_tok_s"] = out["prefill_tok_s"]["ep"] / out["prefill_tok_s"]["local"]
+    out["ep_vs_local_decode_ms"] = out["decode_ms_a_step"]["ep"] / out["decode_ms_a_step"]["local"]
+    out["flash_attention_launches_a_drain"] = {k: v[0]["flash_attention_launches"] for k, v in runs.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer0 = None
+    if f32_check:
+        toks = torch.from_numpy(prompts[0][None, :MESH_F32_PROMPT].astype(np.int64)).to(device)
+        check(toks.shape[1] == MESH_F32_PROMPT, "the float32 prompt is shorter than asked")
+
+        def pre(c):
+            cache = tfm.init_kv_cache(c, 1, MESH_F32_PROMPT, dtype=torch.float32, device=device)
+            return tfm.prefill(params32, toks, cache, c, mesh=mesh)[0]
+
+        def f32_cfg(cf, impl):
+            return dataclasses.replace(cfg, dtype=torch.float32, moe=dataclasses.replace(m, capacity_factor=cf,
+                                                                                         impl=impl))
+
+        cf = m.num_experts / m.top_k
+        want, local_drop = local_dropped(lambda: pre(f32_cfg(cf, "local")))
+        got, log = ep_logged(lambda: pre(f32_cfg(cf, "ep_shardmap")))
+        routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
+        err = float((got - want).abs().max())
+        ep_drop = sum(int((r.stage1 - r.Cs).clamp_min(0).sum()) + int(
+            (r.stage2[:, :-1] - r.Ce).clamp_min(0).sum()) for r in log)
+        check(local_drop == 0 and ep_drop == 0, f"{cfg.name}: slots dropped at capacity_factor {cf}: local "
+              f"{local_drop}, EP {ep_drop}")
+        check(err <= MESH_F32_TOL, f"{cfg.name}: float32 EP vs local at capacity_factor {cf}: {err}")
+        out["float32_prefill_vs_local"] = {"tokens": MESH_F32_PROMPT, "capacity_factor": cf, "max_abs_err": err,
+                                           "logits_max_abs": float(want.abs().max()), "tolerance": MESH_F32_TOL,
+                                           "Cs": routes["Cs"], "Ce": routes["Ce"]}
+        del want, got
+        # the drop path at the config's capacity factor, against the plain per-engine loop
+        e125 = f32_cfg(m.capacity_factor, "ep_shardmap")
+        seen = [s for s in moe_layer_inputs(lambda: pre(e125), layers=MESH_LOOP_LAYERS) if s is not None]
+        check(len(seen) == len(MESH_LOOP_LAYERS), f"{len(seen)} MoE inputs caught, want {MESH_LOOP_LAYERS}")
+        loop = []
+        for li, (lp, x) in zip(MESH_LOOP_LAYERS, seen):
+            got, log = ep_logged(lambda: moe_lib.moe_block(e125.moe, lp, x, mesh=mesh))
+            plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, lp, x, mesh)
+            (r,) = log
+            same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
+            routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
+            err = float((got - plain).abs().max())
+            loop.append({"layer": li, "max_abs_err": err, "out_max_abs": float(plain.abs().max()), "same_slots": same,
+                         "Cs": r.Cs, "Ce": r.Ce, "stage1_dropped_share": routes["stage1_dropped_share_mean"],
+                         "stage2_dropped_share": routes["stage2_dropped_share_mean"]})
+            check(same, f"{cfg.name} layer {li}: EP and the plain loop keep other slots")
+            check(loop[-1]["stage1_dropped_share"] > 0 and loop[-1]["stage2_dropped_share"] > 0,
+                  f"{cfg.name} layer {li}: no slot dropped in a stage at capacity_factor {m.capacity_factor}: "
+                  f"{loop[-1]}")
+            check(torch.allclose(got, plain, **MESH_LOOP_TOL), f"{cfg.name} layer {li}: EP vs the plain loop: {err}")
+        out["float32_layers_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "tokens": MESH_F32_PROMPT,
+                                               "tolerance": MESH_LOOP_TOL, "layers": loop}
+        del seen, got, plain
+        layer0 = {k: v[0].clone() for k, v in params32["layers"].items()}
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, layer0
+
+
+def production_layer(device: torch.device, m, lp: dict, timer: Timer, seed: int) -> tuple[dict, torch.Tensor]:
+    """One olmoe MoE layer (float32 weights of layer 0) on the production mesh,
+    (16, 16) stacked: 256 engines, MESH_PROD_TOKENS random tokens, Cs at its
+    floor, at capacity_factor 4.0 against the local path."""
+    from repro_torch.launch.mesh import make_production_mesh, mesh_devices
+    from repro_torch.models import moe as moe_lib
+
+    mesh = make_production_mesh(device=device)
+    check(mesh_devices(mesh) == 256 and mesh.shape == {"data": 16, "model": 16}, f"production mesh {mesh.shape}")
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    x = torch.randn((1, MESH_PROD_TOKENS, lp["router"].shape[0]), generator=gen, device=device)
+    m4 = dataclasses.replace(m, capacity_factor=4.0)
+    ep = dataclasses.replace(m4, impl="ep_shardmap")
+    want, local_drop = local_dropped(lambda: moe_lib.moe_block(m4, lp, x))
+    got, log = ep_logged(lambda: moe_lib.moe_block(ep, lp, x, mesh=mesh))
+    routes = ep_stats(log, m, 16, MESH_PROD_TOKENS, x.shape[-1], 4)
+    err = float((got - want).abs().max())
+    check(routes["Cs"] == 8, f"Cs {routes['Cs']} on the production mesh, want its floor of 8")
+    check(local_drop == 0 and routes["stage1_dropped_share_mean"] == 0 and routes["stage2_dropped_share_mean"] == 0,
+          f"slots dropped on the production mesh's layer: local {local_drop}, EP {routes}")
+    check(torch.allclose(got, want, **MESH_PROD_TOL), f"the production mesh's EP layer vs local: {err}")
+    with torch.no_grad():
+        ep_ms = timer.device_ms(lambda: moe_lib.moe_block(ep, lp, x, mesh=mesh), calls=3, reps=5)
+        local_ms = timer.device_ms(lambda: moe_lib.moe_block(m4, lp, x), calls=3, reps=5)
+    return {"mesh": dict(mesh.shape), "engines": 256, "tokens": MESH_PROD_TOKENS, "dtype": "float32",
+            "capacity_factor": 4.0, "Cs": routes["Cs"], "Ce": routes["Ce"], "max_abs_err_vs_local": err,
+            "out_max_abs": float(want.abs().max()), "tolerance": MESH_PROD_TOL,
+            "all_to_all_bytes": routes["all_to_all_bytes_a_layer"], "ep_ms": ep_ms, "local_ms": local_ms}, x
+
+
+def mesh_recsys(device: torch.device, seed: int, timer: Timer, mesh) -> tuple[dict, dict, dict]:
+    """dcn-v2 at its published size with lookup_impl="psum_model" on `mesh`,
+    its tables row-sharded by `shard_tensor`: `serve_bulk` logits against the
+    gather path's (bit-equal), MESH_DCN_STEPS training steps at `train_batch`
+    against the gather path's (losses, and the first step's unsharded table
+    gradient), one bag launch a lookup; the bag kernel at the slab's shape
+    against its plain version, its bound and `F.embedding_bag`.  Returns (the
+    entry, the kernel's call site, what the NCCL check reuses)."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import RecsysPipeline, to_device
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.sharding import shard_tensor, unshard_tensor
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.pytree import tree_map
+
+    cfg = get_arch(RECSYS_ARCH).model_config()
+    ps = dataclasses.replace(cfg, lookup_impl="psum_model")
+    ep, t, v, d = mesh.shape["model"], cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
+    params = rec.init_params(cfg, seed, device=device)
+    spec = rec.param_specs(ps, mesh)["tables"]
+    t0 = time.perf_counter()
+    sharded = dict(params, tables=shard_tensor(params["tables"], spec, mesh))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    check(tuple(sharded["tables"].shape) == (1, ep, t, v // ep, d) and sharded["tables"].is_contiguous(),
+          f"the slab {tuple(sharded['tables'].shape)}")
+    check(torch.equal(unshard_tensor(sharded["tables"], spec, mesh), params["tables"]), "unshard(shard(tables))")
+
+    def batches(size, n):
+        it = iter(RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, size, seed=seed))
+        return [to_device(next(it), device) for _ in range(n)]
+
+    bulk = batches(RECSYS_SHAPES["serve_bulk"]["batch"], 1)[0]
+    embedding_bag.launches = 0  # the path's own count starts here
+    with torch.inference_mode():
+        got = rec.forward(sharded, bulk, ps, mesh=mesh)
+        torch.cuda.synchronize()
+        serve_launches = embedding_bag.launches
+        want = rec.forward(params, bulk, cfg)
+        torch.cuda.synchronize()
+    check(serve_launches == 1, f"the psum_model forward launched the bag {serve_launches} times, want 1")
+    check(got.shape == want.shape and torch.equal(got, want), "serve_bulk: psum_model logits vs the gather's")
+    with torch.inference_mode():
+        bulk_ms = timer.call_ms(lambda: rec.forward(sharded, bulk, ps, mesh=mesh), calls=3, reps=5)
+        bulk_gather_ms = timer.call_ms(lambda: rec.forward(params, bulk, cfg), calls=3, reps=5)
+    del bulk, got, want
+
+    # training: the first step's table gradient, then MESH_DCN_STEPS steps of each route
+    train = batches(RECSYS_SHAPES["train_batch"]["batch"], MESH_DCN_STEPS)
+
+    def table_grad(p, c, **kw):
+        """The whole (T, V, D) table gradient of the first batch's loss."""
+        tab = p["tables"].detach().requires_grad_(True)
+        g = torch.autograd.grad(rec.loss_fn(dict(p, tables=tab), train[0], c, **kw), tab)[0]
+        check(g.shape == p["tables"].shape, "the table gradient leaves the table's layout")
+        return unshard_tensor(g, spec, mesh) if kw else g
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    # as training runs: the bag's backward adds with `index_add_`'s atomics, in an order that changes from
+    # run to run, so the gather route is also held against itself
+    g_gather = table_grad(params, cfg)
+    grads = {"atomic_rel_err": rel(table_grad(sharded, ps, mesh=mesh), g_gather),
+             "atomic_gather_run_to_run_rel": rel(table_grad(params, cfg), g_gather)}
+    del g_gather
+    # the same with deterministic algorithms (`index_add_` adds a row's terms in index order): the routes add
+    # the same nonzero terms in the same order, the sharded one also zeros for the ids its shards do not own
+    with deterministic_algorithms():
+        g_gather = table_grad(params, cfg)
+        grads["rel_err"] = rel(table_grad(sharded, ps, mesh=mesh), g_gather)
+    del g_gather
+    check(grads["rel_err"] <= MESH_DCN_GRAD_REL,
+          f"unsharded table gradient vs the gather's (deterministic adds): {grads}")
+    lr_fn = cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)
+    routes = {"gather": (cfg, params, {}), "psum_model": (ps, sharded, {"mesh": mesh})}
+    losses = {name: {"runs": []} for name in routes}
+    for name in ("gather", "psum_model", "psum_model", "gather"):  # in turns on the same card
+        c, p, kw = routes[name]
+        init, step = make_train_step(lambda prm, b, c=c, kw=kw: rec.loss_fn(prm, b, c, **kw), adamw(lr_fn))
+        st = init(tree_map(torch.clone, p))  # each run trains a copy of the same weights
+        embedding_bag.launches = 0
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in train:
+            st, metrics = step(st, b)
+            out.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        losses[name]["runs"].append({"losses": out, "wall_ms_a_step": (time.perf_counter() - t0) / len(train) * 1e3,
+                                     "embedding_bag_launches": embedding_bag.launches})
+        del st
+        gc.collect()
+    for name, r in losses.items():
+        r["losses"] = r["runs"][0]["losses"]
+        r["wall_ms_a_step"] = float(np.mean([run["wall_ms_a_step"] for run in r["runs"]]))
+        r["embedding_bag_launches"] = r["runs"][0]["embedding_bag_launches"]
+        r["runs_bit_equal"] = r["runs"][0]["losses"] == r["runs"][1]["losses"]
+    check(all(run["embedding_bag_launches"] == MESH_DCN_STEPS for run in losses["psum_model"]["runs"]),
+          f"psum_model training launched the bag {losses['psum_model']['runs']} times, want {MESH_DCN_STEPS}")
+    loss_diff = float(np.max(np.abs(np.array(losses["psum_model"]["losses"]) - np.array(losses["gather"]["losses"]))))
+    check(all(np.isfinite(losses["psum_model"]["losses"])) and loss_diff <= MESH_DCN_LOSS_TOL,
+          f"psum_model losses vs the gather's: {losses}")
+
+    # the lookup and its kernel at the training batch: the slab seen as (ep·T, V/ep, D), shifted ids
+    ids = train[0]["sparse_ids"].to(torch.int32)
+    slab = sharded["tables"].view(ep * t, v // ep, d)
+    lo = torch.arange(ep, device=device, dtype=torch.int32) * (v // ep)
+    shifted = (ids[:, None, :] - lo[None, :, None]).reshape(ids.shape[0], ep * t, 1).contiguous()
+    kern, again, plain = embedding_bag(slab, shifted), embedding_bag(slab, shifted), embedding_bag_ref(slab, shifted)
+    lib_fn = library_bag(slab, shifted, None)
+    lib = lib_fn()
+    torch.cuda.synchronize()
+    k_err = float((kern - plain).abs().max())
+    check(torch.equal(kern, again) and torch.allclose(kern, plain, **F32_TOL), f"bag at the slab vs plain: {k_err}")
+    check(torch.allclose(lib, kern, **F32_TOL), "bag at the slab vs F.embedding_bag")
+    bound, by, distinct = bag_bound_ms(slab, shifted, None)
+    part = kern.view(ids.shape[0], ep, t, d).transpose(0, 1)[None]  # (1, ep, B, T, D): the local engines' partials
+    with torch.no_grad():
+        site = {"shape": f"dcn-v2's psum_model lookup on {tuple(mesh.axis_sizes)}: the slab ({ep * t}, {v // ep}, {d}) f32, "
+                         f"shifted ids ({ids.shape[0]}, {ep * t}, 1) Zipf, no weights",
+                "distinct_rows": distinct, "max_abs_err": k_err,
+                "ms": timer.device_ms(lambda: embedding_bag(slab, shifted)),
+                "call_ms": timer.call_ms(lambda: embedding_bag(slab, shifted)),
+                "plain_ms": timer.call_ms(lambda: embedding_bag_ref(slab, shifted), calls=3, reps=5),
+                "bound_ms": bound, "bound_by": by, "library_ms": timer.call_ms(lib_fn)}
+        ids3 = ids[..., None]
+        lookup = {"psum_model_ms": timer.device_ms(lambda: rec.embedding_lookup(ps, sharded["tables"], ids, mesh=mesh)),
+                  "fold_ms": timer.device_ms(lambda: mesh.psum(part, "model")),
+                  "gather_ms": timer.device_ms(lambda: embedding_bag(params["tables"], ids3)),
+                  "partial_bytes": ep * ids.shape[0] * t * d * 4}
+    out = {"arch": RECSYS_ARCH, "tables": [t, v, d], "mesh": dict(mesh.shape), "slab": list(sharded["tables"].shape),
+           "shard_s": shard_s, "serve_bulk": {"batch": RECSYS_SHAPES["serve_bulk"]["batch"],
+                                              "logits_bit_equal_gather": True, "embedding_bag_launches": serve_launches,
+                                              "ms": bulk_ms, "gather_ms": bulk_gather_ms,
+                                              "partial_bytes": ep * RECSYS_SHAPES["serve_bulk"]["batch"] * t * d * 4},
+           "train": {"batch": RECSYS_SHAPES["train_batch"]["batch"], "steps": MESH_DCN_STEPS, **losses,
+                     "loss_max_abs_diff": loss_diff, "loss_tolerance": MESH_DCN_LOSS_TOL,
+                     "table_grad": grads | {"tolerance": MESH_DCN_GRAD_REL}},
+           "lookup_at_train_batch": lookup}
+    keep = {"cfg": ps, "tables": params["tables"], "ids": ids[:512]}
+    return out, site, keep
+
+
+def nccl_world_one_models(device: torch.device, m, lp: dict, x: torch.Tensor, dcn: dict) -> dict:
+    """EP on one olmoe layer and the psum_model lookup over the
+    "process_group" backend, NCCL at world size 1 on a (1, 1) mesh, against
+    the stacked (1, 1) mesh: bit-equal.  The group is destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.graph.distributed import make_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.sharding import shard_tensor
+
+    ep = dataclasses.replace(m, impl="ep_shardmap")
+    stacked = make_mesh((1, 1), MESH_AXES, device=device)
+    cfg = dcn["cfg"]
+    slab = shard_tensor(dcn["tables"], rec.param_specs(cfg, stacked)["tables"], stacked)
+    with torch.no_grad():
+        want_ep = moe_lib.moe_block(ep, lp, x, mesh=stacked)
+        want_bag = rec.embedding_lookup(cfg, slab, dcn["ids"], mesh=stacked)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            pg = make_mesh((1, 1), MESH_AXES, backend="process_group", device=device)
+            with torch.no_grad():
+                got_ep = moe_lib.moe_block(ep, lp, x, mesh=pg)
+                got_bag = rec.embedding_lookup(cfg, slab, dcn["ids"], mesh=pg)
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    r = {"backend": backend, "world_size": 1, "mesh": dict(stacked.shape),
+         "ep_bit_equal_stacked": bool(torch.equal(got_ep, want_ep)),
+         "psum_model_bit_equal_stacked": bool(torch.equal(got_bag, want_bag))}
+    check(r["ep_bit_equal_stacked"] and r["psum_model_bit_equal_stacked"],
+          f"NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
+    return r
+
+
+def phase_mesh_models(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """The model paths on a 2-D engine mesh: olmoe-1b-7b and qwen2-moe-a2.7b
+    served with EP on (2, 8), one olmoe layer on the production mesh, dcn-v2's
+    psum_model lookup on (2, 8), NCCL at world size 1.  Returns (the
+    `mesh_models` line, the bag's new call site)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.distributed import make_mesh
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    check(mesh.num_engines == 16 and mesh.backend == "stacked" and mesh.device.type == "cuda", "the (2, 8) mesh")
+    cfg = get_arch(MOE_ARCH).model_config()
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)  # the moe phase's traffic
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+    t0 = time.perf_counter()
+    olmoe, lp0 = mesh_serve(cfg, device, seed, prompts, SERVE_NEW, mesh, f32_check=True)
+    olmoe["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prod, x = production_layer(device, cfg.moe, lp0, timer, seed)
+    prod["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_LAYERS)
+    check(wide.moe.d_ff_shared > 0 and wide.moe.padded_experts(8) == 64, "qwen2-moe: a shared expert, 60 → 64")
+    wide_prompt = [rng.integers(2, wide.vocab, size=MOE_WIDE_PROMPT).astype(np.int32)]
+    qwen, _ = mesh_serve(wide, device, seed, wide_prompt, MOE_WIDE_STEPS + 1, mesh, f32_check=False)
+    qwen["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dcn, site, keep = mesh_recsys(device, seed, timer, mesh)
+    dcn["seconds"] = time.perf_counter() - t0
+    nccl = nccl_world_one_models(device, cfg.moe, lp0, x, keep)
+    del lp0, x, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"olmoe": olmoe | {"cuts": []},
+           "qwen": qwen | {"cuts": [f"{MOE_WIDE_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, as the moe "
+                                    "phase"]},
+           "production_mesh_layer": prod, "dcn": dcn, "nccl": nccl,
+           "weights": "random, from a seeded torch.Generator on the card (the moe and recsys phases' seeds: "
+                      "the same weights)",
+           "timing": "serving: host clock around each prefill / decode call, synchronised on both sides; layer "
+                     "and lookup ms: CUDA-graph replays (device time), serve_bulk ms calls back to back",
+           "card": smi}
+    say("mesh_models", **out)
+    return out, site
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3596,6 +4128,9 @@ def main() -> int:
     gc.collect()  # the serve weights, before the training state
     torch.cuda.empty_cache()
     _, moe_train_launches = phase_moe_train(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()  # the training state, before the mesh paths' weights
+    torch.cuda.empty_cache()
+    mesh, bag_site = phase_mesh_models(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -3646,6 +4181,8 @@ def main() -> int:
         "moe_shape": moe_attn,
         "launches_moe_train": moe_train_launches["flash_attention"],
         "launches_moe_train_qwen": moe_train_launches["flash_attention_qwen"],
+        "launches_mesh_models": mesh["olmoe"]["flash_attention_launches_a_drain"]["ep"],
+        "launches_mesh_models_qwen": mesh["qwen"]["flash_attention_launches_a_drain"]["ep"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
@@ -3678,6 +4215,9 @@ def main() -> int:
                  "no weights",
         "multi_hot_weighted": {k: bag["path"]["multi_hot_weighted"][k] for k in (
             "B", "L", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_mesh_models": mesh["dcn"]["serve_bulk"]["embedding_bag_launches"]
+        + mesh["dcn"]["train"]["psum_model"]["embedding_bag_launches"],
+        "psum_model": bag_site,
     }]}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,14 @@ and recsys parts of `repro.configs.base`.
 An `LmArch`, `GnnArch` or `RecsysArch` knows its published configuration
 (`model_config()`, a GNN's for one `GNN_SHAPES` cell), a reduced
 `smoke_config()` the CPU tests run, and `model_flops(cell)`, the useful-FLOPs
-yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case, no
-production mesh and no sharding rules here: those are ROADMAP.md Queue A 9b
-(the graph half of multi-device work is ported: `graph/distributed.py` and
-`models/gnn_dist.py` on a 1-D engine mesh), and the dry-run's batch specs
-(`GnnArch.batch_specs`, ShapeDtypeStructs and PartitionSpecs) belong to the
-tooling of Queue A 10.
+yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case here:
+the production mesh is `launch/mesh.py` and the sharding rules are
+`models/sharding.py` (`MeshRules`; `moe.layer_specs`, `recsys.param_specs`),
+and the dry-run's batch specs (`GnnArch.batch_specs`, ShapeDtypeStructs and
+PartitionSpecs) belong to the tooling of Queue A 10.  The configs keep
+MoE's `impl="local"` and dcn-v2's `lookup_impl="gather"`; EP and the
+sharded lookup are switched on with `dataclasses.replace` and run on a mesh
+the caller passes.
 """
 from __future__ import annotations
 

@@ -11,9 +11,12 @@ and applies the update.  `core.mapping.DeviceMapper` picks which device runs
 which engine (`site_permutation`), the paper's placement step; the optional
 `comm_dtype` casts the partials for the exchange (bf16 halves its bytes).
 
-`EngineMesh` is the port of the reference's one-axis `("engines",)` mesh.
-Every per-engine body is written once over a leading *local-engine* axis L,
-and the mesh has two backends:
+`EngineMesh` is the port of the reference's meshes: the one-axis
+`("engines",)` mesh of these paths (`make_engines_mesh`), and a mesh over
+named axes such as `("data", "model")` (`make_mesh`; `launch/mesh.py` builds
+the production one) for the model paths.  Every per-engine body is written
+once over a leading block of *local-engine* axes, one an axis (L below for
+one axis), and the mesh has two backends:
 
   * "stacked"       — all P engines on one device (L = P): the exchange is the
                       swap of the first two axes, a copy on the card.  This is
@@ -22,7 +25,8 @@ and the mesh has two backends:
   * "process_group" — one engine a rank (L = 1) of the default
                       `torch.distributed` group, initialised by the caller:
                       NCCL for a CUDA mesh, gloo for a CPU one.  `site_permutation[p]` is the rank that
-                      runs engine p.
+                      runs engine p; a collective along one axis of several
+                      runs in that axis's subgroup of the rank's row.
 
 Both fold partials and per-engine scalars in engine order (`fold`, never a
 reduction whose order depends on the tensor's shape), so the two backends give
@@ -49,7 +53,7 @@ from repro_torch.graph.structs import EllBlocks, HostGraph, build_ell
 from repro_torch.graph.vertex_program import VertexProgram
 from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
-__all__ = ["EngineMesh", "make_engines_mesh", "fold", "engine_sums", "ShardedVertexGraph",
+__all__ = ["EngineMesh", "make_mesh", "make_engines_mesh", "fold", "engine_sums", "ShardedVertexGraph",
            "DistributedEngine", "MESH_BACKENDS"]
 
 Tensor = torch.Tensor
@@ -76,19 +80,46 @@ def engine_sums(x: Tensor, dtype: torch.dtype | None = None) -> Tensor:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class EngineMesh:
-    """A 1-D `("engines",)` mesh of `num_engines` engines on `device`.
+    """A mesh of engines on `device`, over the named axes `axis_names` of
+    sizes `axis_sizes` (row-major; an int n: the 1-D mesh `("engines",)` ×
+    n).  `shape` maps each axis to its size, as a JAX mesh's does.
 
-    Tensors carry a leading local-engine axis L: P on the "stacked" backend,
-    1 on "process_group".  `site_permutation[p]` is the device of engine p:
-    the rank that runs it on "process_group"; on "stacked" every engine is on
-    the one device, in engine order.  Build it with `make_engines_mesh`."""
+    Tensors carry a leading block of local-engine axes, one an axis: the
+    axis's size on the "stacked" backend, 1 on "process_group".  A tensor
+    that is the same on every engine along an axis may hold 1 there instead
+    (broadcast), as `models.sharding.shard_tensor` lays out a replicated
+    one.  `site_permutation[p]` is the device of engine p, p the row-major
+    engine index: the rank that runs it on "process_group"; on "stacked"
+    every engine is on the one device, in engine order.  Build it with
+    `make_mesh` (or `make_engines_mesh` for one axis).
 
-    num_engines: int
+    The collectives act along one named axis, within each row of the other
+    axes; without an axis, along every axis (the 1-D API).  On
+    "process_group" each axis's rows are subgroups (`dist.new_group`) that
+    every rank creates in the same order when the mesh is made."""
+
+    axis_sizes: int | tuple[int, ...]
     device: torch.device
     backend: str = "stacked"
     site_permutation: np.ndarray | None = None
+    axis_names: tuple[str, ...] = ("engines",)
+    # process_group: for each axis, (this rank's subgroup or None for the whole
+    # world, group rank of each coordinate along the axis in this rank's row)
+    _groups: tuple | None = None
 
-    axis_names = ("engines",)
+    def __post_init__(self):
+        if isinstance(self.axis_sizes, int):
+            object.__setattr__(self, "axis_sizes", (self.axis_sizes,))
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"axes {self.axis_names} of sizes {self.axis_sizes}")
+
+    @property
+    def num_engines(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     @property
     def _perm(self) -> np.ndarray:
@@ -97,33 +128,151 @@ class EngineMesh:
 
     @property
     def local_engines(self) -> np.ndarray:
-        """The engines this process holds, in the order of its local axis."""
+        """The engines this process holds (row-major indices), in the order of
+        its local axes."""
         if self.backend == "stacked":
             return np.arange(self.num_engines)
         return np.nonzero(self._perm == dist.get_rank())[0]
 
-    def all_to_all(self, x: Tensor) -> Tensor:
-        """x (L, P, …): row j of each local engine is for engine j.  Returns
-        (L, P, …): row i of each local engine is what engine i sent it."""
-        if self.backend == "stacked":
-            return x.transpose(0, 1).contiguous()
-        perm = torch.from_numpy(self._perm).to(x.device)
-        send = x[0].index_select(0, torch.argsort(perm))  # block k goes to rank k
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
-        return recv.index_select(0, perm)[None]  # engine i's block arrived from rank perm[i]
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        """The local-engine axes' sizes: the mesh's on "stacked", 1s on "process_group"."""
+        return self.axis_sizes if self.backend == "stacked" else (1,) * len(self.axis_sizes)
 
-    def all_gather(self, x: Tensor) -> Tensor:
-        """x (L, …) → (P, …): every engine's rows, in engine order."""
+    def local_coords(self, axis: str) -> np.ndarray:
+        """The coordinates along `axis` of this process's engines, in local order."""
+        a = self.axis_index(axis)
+        if self.backend == "stacked":
+            return np.arange(self.axis_sizes[a])
+        return np.asarray([np.unravel_index(int(self.local_engines[0]), self.axis_sizes)[a]])
+
+    def local_slices(self) -> tuple[slice, ...]:
+        """Index of this process's block in a tensor laid out over all engines."""
+        if self.backend == "stacked":
+            return (slice(None),) * len(self.axis_sizes)
+        coords = np.unravel_index(int(self.local_engines[0]), self.axis_sizes)
+        return tuple(slice(int(c), int(c) + 1) for c in coords)
+
+    def axis_index(self, axis: str | None) -> int:
+        if axis is None:
+            if len(self.axis_names) != 1:
+                raise ValueError(f"a mesh of axes {self.axis_names} needs the axis named")
+            return 0
+        if axis not in self.axis_names:
+            raise ValueError(f"no axis {axis!r} in the mesh's {self.axis_names}")
+        return self.axis_names.index(axis)
+
+    def all_to_all(self, x: Tensor, axis: str | None = None) -> Tensor:
+        """x (local engines…, S, …), S the axis's size: block j of each engine
+        is for the engine at coordinate j along `axis` in its row.  Returns the
+        same shape: block i is what the engine at coordinate i sent it.  On
+        "stacked", the swap of the axis with the block axis."""
+        a, n = self.axis_index(axis), len(self.axis_sizes)
+        if self.backend == "stacked":
+            return x.transpose(a, n).contiguous()
+        group, grank = self._groups[a]
+        grank = torch.from_numpy(grank).to(x.device)
+        lead = x.shape[:n]
+        send = x.reshape(x.shape[n:]).index_select(0, torch.argsort(grank))  # block k goes to group rank k
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv.index_select(0, grank).reshape(*lead, *recv.shape)  # block i arrived from grank[i]
+
+    def all_gather(self, x: Tensor, axis: str | None = None) -> Tensor:
+        """Every engine's block along `axis`, in coordinate order: the local
+        axis grows to the axis's size (on "stacked" `x` is returned as it
+        is).  Without an axis on a 1-D mesh: x (L, …) → (P, …)."""
         if self.backend == "stacked":
             return x
-        parts = [torch.empty_like(x) for _ in range(self.num_engines)]
-        dist.all_gather(parts, x.contiguous())
-        return torch.cat([parts[r] for r in self._perm])
+        if axis is None and len(self.axis_names) > 1:
+            for name in self.axis_names:
+                x = self.all_gather(x, name)
+            return x
+        a = self.axis_index(axis)
+        group, grank = self._groups[a]
+        parts = [torch.empty_like(x) for _ in range(len(grank))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat([parts[r] for r in grank], dim=a)
 
-    def psum(self, x: Tensor) -> Tensor:
-        """x (L, …) → (…): the sum over all engines, added in engine order."""
-        return fold(self.all_gather(x), 0)
+    def psum(self, x: Tensor, axis: str | None = None) -> Tensor:
+        """The sum over the engines along `axis`, added in engine order
+        (`fold`), kept as a local axis of size 1 (the same on every engine of
+        the row).  Without an axis: x (local engines…, …) → (…), the sum over
+        every engine in row-major engine order."""
+        n = len(self.axis_sizes)
+        if axis is None:
+            full = self.all_gather(x)
+            return fold(full.reshape(-1, *full.shape[n:]), 0)
+        a = self.axis_index(axis)
+        return fold(self.all_gather(x, axis), a).unsqueeze(a)
+
+
+def _axis_groups(sizes: tuple[int, ...], perm: np.ndarray, rank: int) -> tuple:
+    """For each axis, (this rank's subgroup, the group rank of each coordinate
+    along the axis in its row).  Every rank creates every row's subgroup, axis
+    by axis and row by row in row-major order, as `dist.new_group` requires; a
+    row that spans the whole world is the default group (None)."""
+    engines = np.arange(int(np.prod(sizes))).reshape(sizes)
+    out = []
+    for a, size in enumerate(sizes):
+        mine = None
+        for row in np.moveaxis(engines, a, -1).reshape(-1, size):
+            ranks = perm[row]
+            group = None if len(row) == len(perm) else dist.new_group(sorted(ranks.tolist()))
+            if rank in ranks:
+                mine = (group, np.argsort(np.argsort(ranks)))  # a group's ranks are its members in sorted order
+        out.append(mine)
+    return tuple(out)
+
+
+def make_mesh(
+    shape,
+    axes,
+    *,
+    site_permutation: np.ndarray | None = None,
+    backend: str = "stacked",
+    device: str | torch.device | None = None,
+) -> EngineMesh:
+    """A mesh of `shape` engines over the named `axes` (e.g. (2, 8) over
+    ("data", "model")); `site_permutation[p]` = the device of engine p, p the
+    row-major engine index.
+
+    "stacked" (the default): every engine on `device` (None: the card).
+    "process_group": one engine a rank of the initialised default group,
+    whose size must be the engine count and whose backend must be NCCL for a
+    CUDA `device` and gloo for the CPU; each axis's subgroups are made here,
+    by every rank in the same order."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes) or min(shape, default=0) < 1:
+        raise ValueError(f"a mesh of shape {shape} over axes {axes}")
+    dev = resolve_device(device)
+    if backend not in MESH_BACKENDS:
+        raise ValueError(f"unknown mesh backend {backend!r}; options: {'|'.join(MESH_BACKENDS)}")
+    num = int(np.prod(shape))
+    perm = None
+    if site_permutation is not None:
+        perm = np.asarray(site_permutation, dtype=np.int64)
+        if not np.array_equal(np.sort(perm), np.arange(num)):
+            raise ValueError(f"site_permutation {perm.tolist()} is not a permutation of {num} engines")
+    groups = None
+    if backend == "process_group":
+        _check_process_group(dev)
+        world = dist.get_world_size()
+        if num != world:
+            raise ValueError(f"one engine a rank: {num} engines on {world} ranks")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        groups = _axis_groups(shape, np.arange(num) if perm is None else perm, dist.get_rank())
+    return EngineMesh(shape, dev, backend, perm, axes, groups)
+
+
+def _check_process_group(dev: torch.device) -> None:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("the process_group mesh needs torch.distributed initialised by the caller")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    got = dist.get_backend()
+    if got != want:
+        raise ValueError(f"a {dev.type} mesh runs over {want}; the process group runs {got}")
 
 
 def make_engines_mesh(
@@ -140,29 +289,15 @@ def make_engines_mesh(
     a rank of the initialised default group, whose backend must be NCCL for a
     CUDA `device` and gloo for the CPU."""
     dev = resolve_device(device)
-    if backend not in MESH_BACKENDS:
-        raise ValueError(f"unknown mesh backend {backend!r}; options: {'|'.join(MESH_BACKENDS)}")
     if backend == "process_group":
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError("the process_group mesh needs torch.distributed initialised by the caller")
-        want = "nccl" if dev.type == "cuda" else "gloo"
-        got = dist.get_backend()
-        if got != want:
-            raise ValueError(f"a {dev.type} mesh runs over {want}; the process group runs {got}")
+        _check_process_group(dev)
         world = dist.get_world_size()
         if num_engines is not None and num_engines != world:
             raise ValueError(f"one engine a rank: {num_engines} engines on {world} ranks")
         num_engines = world
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
     if num_engines is None:
         num_engines = 1 if site_permutation is None else len(site_permutation)
-    perm = None
-    if site_permutation is not None:
-        perm = np.asarray(site_permutation, dtype=np.int64)
-        if not np.array_equal(np.sort(perm), np.arange(num_engines)):
-            raise ValueError(f"site_permutation {perm.tolist()} is not a permutation of {num_engines} engines")
-    return EngineMesh(num_engines, dev, backend, perm)
+    return make_mesh((num_engines,), ("engines",), site_permutation=site_permutation, backend=backend, device=dev)
 
 
 @dataclasses.dataclass

@@ -25,10 +25,12 @@ __all__ = ["build_engine", "main"]
 
 
 def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_seq: int,
-                 device: str | torch.device | None = None) -> ServeEngine:
+                 device: str | torch.device | None = None, mesh=None) -> ServeEngine:
     """An engine over `params` on `device` (None: the card) with a float32 KV
     cache of `slots` × `max_seq` positions.  The weights are kept once, in
-    `cfg.dtype` (`tfm.cast_params`)."""
+    `cfg.dtype` (`tfm.cast_params`).  `mesh`: the engine mesh (e.g.
+    `graph.distributed.make_mesh((2, 8), ("data", "model"))`) that every
+    prefill and decode step hands the model, for MoE's impl="ep_shardmap"."""
     dev = resolve_device(device)
     params = tfm.cast_params(params, cfg, device=dev)
 
@@ -38,13 +40,13 @@ def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_se
     def prefill_one(cache, slot, tokens):
         # the slot's range of the slot-batched cache, as views: prefill writes it in place
         sub = {"k": cache["k"][:, slot:slot + 1], "v": cache["v"][:, slot:slot + 1]}
-        logits, _ = tfm.prefill(params, tokens.to(dev), sub, cfg)
+        logits, _ = tfm.prefill(params, tokens.to(dev), sub, cfg, mesh=mesh)
         return cache, logits
 
     def decode(cache, tokens, pos):
         # per-slot positions: every slot decodes at its own offset; masking
         # handles inactive slots
-        return tfm.decode_step_batched_pos(params, cache, pos.to(dev), tokens.to(dev), cfg)
+        return tfm.decode_step_batched_pos(params, cache, pos.to(dev), tokens.to(dev), cfg, mesh=mesh)
 
     return ServeEngine(slots=slots, max_seq=max_seq, init_cache=init_cache,
                        prefill_one=prefill_one, decode=decode)

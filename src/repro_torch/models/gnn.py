@@ -7,8 +7,8 @@ package's params load one for one (`repro_torch.interop.gnn_params`), and
 the forwards line for line: SiLU MLPs with a bias-free LayerNorm (eps 1e-6),
 GAT's leaky-ReLU(0.2) edge softmax and head average, PNA's aggregators and
 degree scalers, GraphCast's interaction blocks with residuals.  What does
-not: `MeshRules` and its activation constraints (identities on one device;
-`MeshRules` is ROADMAP.md Queue A 9b).  GIN over P engines by halo exchange
+not: `MeshRules`' activation constraints (identities on one device; the
+rules themselves are `models.sharding`).  GIN over P engines by halo exchange
 is `models.gnn_dist`; the vertex-centric engine over P engines is
 `graph.distributed`.
 

@@ -32,8 +32,35 @@ entry a layer a forward: a recompute under `checkpoint` (with
 `checkpoint_contexts`) routes the same tokens again and logs nothing.
 `expert_device_permutation` (host numpy, the paper's placement applied to
 expert blocks) is ported.
-Not ported: `impl="ep_shardmap"` (expert parallelism over a mesh) and
-`layer_specs`, ROADMAP.md Queue A 9.
+
+`impl="ep_shardmap"` is expert parallelism over an engine mesh
+(`graph.distributed.EngineMesh`, passed as `moe_block(..., mesh=)`): the
+experts, padded to a multiple of the `m.ep_axis` size, are dealt to its
+engines in blocks of e_l; the tokens are laid over (data axes…, model) in
+row-major order, padded to a multiple of the engine count; each engine
+routes its own tokens and the reference's two-stage dispatch (`_moe_ep_body`)
+runs over the mesh's local-engine axes at once, not a loop over engines:
+stage 1 sorts each engine's slots by destination (stable), keeps `Cs` a
+destination and exchanges tokens and local expert ids with one
+`all_to_all` over the model axis; stage 2 sorts what arrived by local expert,
+keeps `Ce` an expert, runs the experts (`torch.bmm` over the local expert
+slab: every data row's tokens of an expert in one product, so the slab is
+read once and never copied), and both stages run back, the gate applied at
+the source and each token's k slots summed in slot order (no atomics).
+The padded experts are zero weights in the reference; here their output
+rows are zeros, which is what zero weights give, without a padded copy of
+the weights.  `layer_specs` is the reference's.  Differences: without a
+mesh, or on a mesh without the axis, EP raises where the reference runs the
+local path; on "process_group" it is forward only (the exchange has no
+autograd yet, ROADMAP.md Queue A 9b).  EP takes the whole expert stacks and
+the whole token batch, as the transformer around it holds them, and hands
+every process every token's output: each process reads only its engines'
+expert block and tokens, but on "process_group" every rank still holds every
+expert's weights, so EP there saves no memory yet (laying the stacks out with
+`models.sharding.shard_tensor`, as `recsys`'s `psum_model` does its tables,
+comes with EP training, ROADMAP.md Queue A 9b).  `moe_ep_loop_ref` is EP's
+plain version: the reference's per-device body for one engine at a time,
+the exchanges as indexing, no sort.
 """
 from __future__ import annotations
 
@@ -45,8 +72,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["MoEConfig", "layer_shapes", "capacity", "moe_block", "moe_loop_ref", "load_balance_loss",
-           "checkpoint_contexts", "expert_device_permutation"]
+from repro_torch.models.sharding import P, MeshRules, axis_if_divisible
+
+__all__ = ["MoEConfig", "IMPLS", "layer_shapes", "layer_specs", "capacity", "ep_capacities", "moe_block",
+           "moe_loop_ref", "moe_ep_loop_ref", "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
+
+IMPLS = ("local", "ep_shardmap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +88,7 @@ class MoEConfig:
     d_ff_shared: int = 0  # 0 ⇒ no shared expert (olmoe); >0 ⇒ qwen2-moe style
     capacity_factor: float = 1.25
     norm_topk: bool = True  # olmoe normalises top-k probs; qwen2-moe does not
-    impl: str = "local"  # "local"; "ep_shardmap" is not ported (ROADMAP.md Queue A 9)
+    impl: str = "local"  # "local" | "ep_shardmap" (expert parallelism: moe_block(..., mesh=))
     ep_axis: str = "model"
     aux_loss_weight: float = 0.01
     router_z_weight: float = 1e-3
@@ -84,6 +115,30 @@ def layer_shapes(m: MoEConfig, d_model: int) -> dict[str, tuple[int, ...]]:
             }
         )
     return shapes
+
+
+def layer_specs(m: MoEConfig, d_model: int, r: MeshRules, *, prefix: int = 0, mesh=None) -> dict:
+    """Expert stacks shard E on model when divisible, else fall back to
+    sharding the expert FFN dim on model (qwen's 60 experts on a 16-way axis)."""
+    e_ax = axis_if_divisible(m.num_experts, r.model, mesh)
+    f_ax = None if e_ax is not None else axis_if_divisible(m.d_ff_expert, r.model, mesh)
+    pre = [None] * prefix
+    specs = {
+        "router": P(*pre, axis_if_divisible(d_model, r.fsdp, mesh), None),
+        "we_gate": P(*pre, e_ax, axis_if_divisible(d_model, r.fsdp, mesh), f_ax),
+        "we_up": P(*pre, e_ax, axis_if_divisible(d_model, r.fsdp, mesh), f_ax),
+        "we_down": P(*pre, e_ax, f_ax, axis_if_divisible(d_model, r.fsdp, mesh)),
+    }
+    if m.d_ff_shared:
+        specs.update(
+            {
+                "ws_gate": r.col_parallel(d_model, m.d_ff_shared, prefix=prefix, mesh=mesh),
+                "ws_up": r.col_parallel(d_model, m.d_ff_shared, prefix=prefix, mesh=mesh),
+                "ws_down": r.row_parallel(m.d_ff_shared, d_model, prefix=prefix, mesh=mesh),
+                "ws_sig": P(*pre, None, None),
+            }
+        )
+    return specs
 
 
 def capacity(m: MoEConfig, n: int) -> int:
@@ -193,6 +248,153 @@ def _moe_local(m: MoEConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return _combine(m, plan, y, top_p)
 
 
+# --------------------------- expert-parallel path (impl="ep_shardmap") ----
+
+
+def ep_capacities(m: MoEConfig, n_l: int, ep: int, e_l: int) -> tuple[int, int]:
+    """(Cs, Ce): the slots an engine sends each destination in stage 1 when it
+    routes `n_l` tokens, and the slots a local expert keeps in stage 2; the
+    reference's Python-float expressions, term for term."""
+    Cs = max(8, int(math.ceil(n_l * m.top_k / ep * m.capacity_factor)))
+    Ce = max(8, int(math.ceil(ep * Cs / max(e_l, 1) * m.capacity_factor)))
+    return Cs, Ce
+
+
+def _sort_rows(v: torch.Tensor, num_segments: int):
+    """`_sort_dispatch` for each row of v (engines, slots) at once: (order,
+    position within its segment, counts a segment), each (engines, ·)."""
+    _, order = torch.sort(v, dim=1, stable=True)
+    v_s = v.gather(1, order)
+    counts = torch.zeros((v.shape[0], num_segments), dtype=torch.long, device=v.device)
+    counts.scatter_add_(1, v_s, torch.ones_like(v_s))
+    starts = torch.cumsum(counts, 1) - counts
+    pos = torch.arange(v.shape[1], device=v.device)[None, :] - starts.gather(1, v_s)
+    return order, pos, counts
+
+
+@dataclasses.dataclass
+class EpRoute:
+    """One EP routing (`moe_block.ep_log`): the capacities and, for each
+    local engine, the slots a destination got in stage 1 (engines, ep) and a
+    local expert got in stage 2 (engines, e_l + 1; the last column counts the
+    empty slots)."""
+
+    Cs: int
+    Ce: int
+    stage1: torch.Tensor
+    stage2: torch.Tensor
+
+
+def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab: tuple, e_l: int) -> torch.Tensor:
+    """The reference's per-device body (`_moe_ep_local_body`) for every local
+    engine at once.  x (G, M, n_l, D): the local engines' tokens, G over the
+    data axes (flattened) and M over the model axis, in that order whatever
+    the mesh's axis order; slab (wg, wu, wd): the real experts among the
+    local engines' (M·e_l, ·, ·) expert block, its first rows.  Returns
+    (G, M, n_l, D)."""
+    G, M, n_l, d = x.shape
+    L, k, ep = G * M, m.top_k, mesh.shape[m.ep_axis]
+    dev = x.device
+    a, n_axes = mesh.axis_index(m.ep_axis), len(mesh.axis_names)
+    dp_local = [s for name, s in zip(mesh.axis_names, mesh.local_shape) if name != m.ep_axis]
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        """(L·ep·Cs, …) → the same: block j of engine (g, i) goes to (g, j) along the model axis."""
+        rest = t.shape[1:]
+        t = t.view(*dp_local, M, ep, Cs, *rest).movedim(n_axes - 1, a)
+        t = mesh.all_to_all(t, m.ep_axis).movedim(a, n_axes - 1)
+        return t.reshape(L * ep * Cs, *rest)
+
+    xf = x.reshape(L * n_l, d)
+    top_p, top_i, _ = _router(m, {"router": router}, xf)
+    top_p, top_i = top_p.view(L, n_l * k), top_i.view(L, n_l * k)
+    rows = torch.arange(L, device=dev)[:, None]
+
+    # stage 1: route each engine's slots to the engines that own their experts
+    dest = torch.div(top_i, e_l, rounding_mode="floor")
+    Cs, Ce = ep_capacities(m, n_l, ep, e_l)
+    S = ep * Cs
+    order, pos, counts1 = _sort_rows(dest, ep)
+    keep = pos < Cs
+    slot = torch.where(keep, dest.gather(1, order) * Cs + pos, S)  # S: the sentinel of a dropped slot
+    into = torch.where(keep, rows * S + slot, L * S).view(-1)  # one sentinel row for every engine
+    t_s = torch.div(order, k, rounding_mode="floor")  # the token of each sorted slot
+    send_x = torch.zeros((L * S + 1, d), dtype=x.dtype, device=dev)
+    send_x.index_copy_(0, into, xf[(rows * n_l + t_s).view(-1)])
+    send_e = torch.full((L * S + 1,), e_l, dtype=torch.long, device=dev)  # e_l marks an empty slot
+    send_e.index_copy_(0, into, (top_i - dest * e_l).gather(1, order).view(-1))
+    send_g = torch.zeros((L * S + 1,), dtype=x.dtype, device=dev)
+    send_g.index_copy_(0, into, top_p.gather(1, order).view(-1))
+    recv_x, recv_e = exchange(send_x[:-1]), exchange(send_e[:-1]).view(L, S)
+
+    # stage 2: group what arrived by local expert, into every local expert's rows
+    # (experts, G, Ce) — an expert's tokens from every data row together
+    order2, pos2, counts2 = _sort_rows(recv_e, e_l + 1)
+    e2 = recv_e.gather(1, order2)
+    keep2 = (pos2 < Ce) & (e2 < e_l)
+    g_of, i_of = torch.div(rows, M, rounding_mode="floor"), rows % M
+    n_buf = M * e_l * G * Ce
+    dest2 = torch.where(keep2, ((i_of * e_l + e2) * G + g_of) * Ce + pos2, n_buf).view(-1)
+    arrived = (rows * S + order2).view(-1)
+    buf = torch.zeros((n_buf + 1, d), dtype=x.dtype, device=dev)
+    buf.index_copy_(0, dest2, recv_x[arrived])
+    del recv_x
+    buf = buf[:-1].view(M * e_l, G * Ce, d)
+    real = slab[0].shape[0]
+    y = _expert_ffn(*slab, buf[:real])
+    del buf
+    if real < M * e_l:  # a padded expert's rows: what zero weights give
+        y = torch.cat([y, y.new_zeros((M * e_l - real, *y.shape[1:]))])
+    y = y.view(n_buf, d)
+    y_recv = torch.empty((L * S, d), dtype=x.dtype, device=dev)
+    y_recv.index_copy_(0, arrived, y[dest2.clamp_max(n_buf - 1)] * keep2.view(-1, 1).to(x.dtype))
+
+    # back: the reverse exchange, the gate at the source, each token's k slots summed in slot order
+    y_slot = exchange(y_recv).view(L, S, d) * send_g[:-1].view(L, S, 1)
+    contrib = y_slot.view(L * S, d)[(rows * S + slot.clamp_max(S - 1)).view(-1)]
+    contrib = contrib * (slot < S).view(-1, 1).to(x.dtype)
+    y_tok = torch.empty_like(contrib).index_copy_(0, (rows * (n_l * k) + order).view(-1), contrib)
+    if moe_block.ep_log is not None:
+        moe_block.ep_log.append(EpRoute(Cs, Ce, counts1, counts2))
+    return y_tok.view(G, M, n_l, k, d).sum(3)
+
+
+def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
+    """Expert parallelism over `mesh`'s `m.ep_axis`.  x: (N, D), the whole
+    token batch on every process; returns (N, D), gathered from every engine."""
+    if mesh is None or m.ep_axis not in mesh.shape:
+        raise ValueError(f"MoE impl='ep_shardmap' needs a mesh with the {m.ep_axis!r} axis (moe_block(..., "
+                         f"mesh=)); got {None if mesh is None else mesh.axis_names}")
+    if mesh.backend != "stacked" and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in lp.values())):
+        raise NotImplementedError("EP on the process_group backend is forward only: its exchange has no "
+                                  "autograd (ROADMAP.md Queue A 9b)")
+    ep = mesh.shape[m.ep_axis]
+    e_l = m.padded_experts(ep) // ep
+    names = [a for a in mesh.axis_names if a != m.ep_axis]
+    dp = [mesh.shape[a] for a in names]
+    n_dev = mesh.num_engines
+    n_tok, d = x.shape
+    n_pad = -(-n_tok // n_dev) * n_dev  # decode batches can be smaller than the engine count
+    if n_pad != n_tok:
+        x = torch.cat([x, x.new_zeros((n_pad - n_tok, d))])
+    n_l = n_pad // n_dev
+    # the local engines' tokens, in (data axes…, model) order
+    where = dict(zip(mesh.axis_names, mesh.local_slices()))
+    xl = x.view(*dp, ep, n_l, d)[tuple(where[a] for a in names) + (where[m.ep_axis],)]
+    G, M = int(np.prod(xl.shape[:len(dp)])), xl.shape[len(dp)]
+    # the local engines' expert block: experts [j0·e_l, (j0 + M)·e_l), the real ones its first rows
+    j0 = int(mesh.local_coords(m.ep_axis)[0])
+    lo = min(j0 * e_l, m.num_experts)
+    hi = min((j0 + M) * e_l, m.num_experts)
+    slab = tuple(lp[n][lo:hi] for n in ("we_gate", "we_up", "we_down"))
+    out = _moe_ep_body(m, mesh, xl.reshape(G, M, n_l, d), lp["router"], slab, e_l)
+    # every engine's tokens back on every process, in token order
+    full = out.view(*xl.shape[:len(dp)], M, n_l, d).movedim(len(dp), mesh.axis_index(m.ep_axis))
+    full = mesh.all_gather(full).movedim(mesh.axis_index(m.ep_axis), len(dp))
+    return full.reshape(n_pad, d)[:n_tok]
+
+
 # ------------------------------ public block -------------------------------
 
 
@@ -203,31 +405,36 @@ def _shared_expert(lp: dict, x: torch.Tensor) -> torch.Tensor:
     return shared * torch.sigmoid(x @ lp["ws_sig"].to(x.dtype))
 
 
-def moe_block(m: MoEConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) → (B, S, D).  Routed experts (+ optional shared expert);
-    the B·S tokens are routed together, one capacity for all of them."""
-    if m.impl != "local":
-        raise NotImplementedError(
-            f"MoE impl={m.impl!r}: expert parallelism is not ported (ROADMAP.md Queue A 9); use impl='local'"
-        )
+def moe_block(m: MoEConfig, lp: dict, x: torch.Tensor, *, mesh=None) -> torch.Tensor:
+    """x: (B, S, D) → (B, S, D).  Routed experts (+ optional shared expert).
+    "local": the B·S tokens are routed together, one capacity for all of
+    them; "ep_shardmap": over `mesh` (an `EngineMesh` with the `m.ep_axis`
+    axis; without one it raises), each engine routing its share."""
+    if m.impl not in IMPLS:
+        raise ValueError(f"unknown MoE impl {m.impl!r}; options: {'|'.join(IMPLS)}")
     b, s, d = x.shape
-    out = _moe_local(m, lp, x.reshape(b * s, d)).view(b, s, d)
+    flat = x.reshape(b * s, d)
+    routed = _moe_ep(m, lp, flat, mesh) if m.impl == "ep_shardmap" else _moe_local(m, lp, flat)
+    out = routed.view(b, s, d)
     if m.d_ff_shared:
         out = out + _shared_expert(lp, x)
     return out
 
 
-# A list that each routing appends (C, slots each expert got) to, or None (the default: nothing is kept).
+# A list that each local routing appends (C, slots each expert got) to, or None (the default: nothing
+# is kept); and one that each EP routing appends an `EpRoute` to.
 moe_block.route_log = None
+moe_block.ep_log = None
 
 
 @contextlib.contextmanager
 def _route_log_off():
-    log, moe_block.route_log = moe_block.route_log, None
+    logs = moe_block.route_log, moe_block.ep_log
+    moe_block.route_log = moe_block.ep_log = None
     try:
         yield
     finally:
-        moe_block.route_log = log
+        moe_block.route_log, moe_block.ep_log = logs
 
 
 def checkpoint_contexts():
@@ -260,6 +467,62 @@ def moe_loop_ref(m: MoEConfig, lp: dict, x: torch.Tensor):
     if m.d_ff_shared:
         out = out + _shared_expert(lp, x)
     return out, kept
+
+
+def moe_ep_loop_ref(m: MoEConfig, lp: dict, x: torch.Tensor, mesh):
+    """The plain version of impl="ep_shardmap" on `mesh` (read for its shape
+    only): the reference's per-device two-stage body run for one engine at a
+    time in a Python loop, the all-to-alls as indexing between the engines'
+    slots, and no sort: an engine keeps the first `Cs` of its slots for each
+    destination in (token, slot) order, an engine the first `Ce` of what
+    arrived for each local expert in order of arrival (source engine, then
+    slot), and each kept slot's SwiGLU times its gate is added into its
+    token's row.  Returns (out (B, S, D), stage-1 slots each destination got
+    (engines, ep), stage-2 slots each local expert got (engines, e_l + 1, the
+    last column the empty slots)), engines in (data…, model) order, as an
+    `EpRoute`'s."""
+    b, s, d = x.shape
+    k, ep = m.top_k, mesh.shape[m.ep_axis]
+    G = mesh.num_engines // ep
+    e_l = m.padded_experts(ep) // ep
+    flat = x.reshape(b * s, d)
+    n = flat.shape[0]
+    n_pad = -(-n // (G * ep)) * (G * ep)
+    flat = torch.cat([flat, flat.new_zeros((n_pad - n, d))])  # the padding tokens are routed too
+    n_l = n_pad // (G * ep)
+    Cs, Ce = ep_capacities(m, n_l, ep, e_l)
+    top_p, top_i, _ = _router(m, lp, flat)
+    out = torch.zeros_like(flat)
+    stage1 = torch.zeros((G, ep, ep), dtype=torch.long)
+    stage2 = torch.zeros((G, ep, e_l + 1), dtype=torch.long)
+    for g in range(G):
+        sent = {}  # (source i, destination j) → (tokens, global experts, gates) of the kept slots
+        for i in range(ep):
+            src = slice((g * ep + i) * n_l, (g * ep + i + 1) * n_l)  # engine (g, i)'s tokens
+            tok = torch.arange(n_pad, device=x.device)[src].repeat_interleave(k)
+            e, gate = top_i[src].reshape(-1), top_p[src].reshape(-1)  # its slots in (token, slot) order
+            for j in range(ep):
+                sel = ((e // e_l) == j).nonzero()[:, 0]
+                stage1[g, i, j] = sel.numel()
+                sel = sel[:Cs]
+                sent[i, j] = tok[sel], e[sel], gate[sel]
+        for j in range(ep):
+            tok, e, gate = (torch.cat(t) for t in zip(*(sent[i, j] for i in range(ep))))
+            stage2[g, j, e_l] = ep * Cs - tok.numel()
+            for el in range(e_l):
+                sel = (e == j * e_l + el).nonzero()[:, 0]
+                stage2[g, j, el] = sel.numel()
+                sel = sel[:Ce]
+                w = j * e_l + el
+                if w >= m.num_experts or sel.numel() == 0:
+                    continue  # a padded expert: zero weights give zero rows
+                h = flat[tok[sel]]
+                y = (F.silu(h @ lp["we_gate"][w].to(x.dtype)) * (h @ lp["we_up"][w].to(x.dtype))) @ lp["we_down"][w].to(x.dtype)
+                out.index_add_(0, tok[sel], y * gate[sel, None])
+    out = out[:n].view(b, s, d)
+    if m.d_ff_shared:
+        out = out + _shared_expert(lp, x)
+    return out, stage1.view(G * ep, ep), stage2.view(G * ep, e_l + 1)
 
 
 # ---------------------- paper tie-in: expert placement ---------------------

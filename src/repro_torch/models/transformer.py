@@ -14,8 +14,10 @@ What changes:
     backward (`torch.utils.checkpoint`, non-reentrant) when grad is on, so the
     attention forward kernel runs twice a layer in a training step (an MoE
     layer routes twice too, and logs its routing once:
-    `moe.checkpoint_contexts`); no mesh
-    (`models/sharding.py` is not ported).
+    `moe.checkpoint_contexts`).  There is no ambient mesh: `forward`,
+    `prefill` and the decode steps take `mesh=` and hand it to the MoE
+    block (impl="ep_shardmap" runs over it); the rest of the model runs
+    whole on every process and ignores it.
   * Attention of prefill and forward goes through `ops.flash_attention`
     (the CUDA kernel for a CUDA tensor; with grad on, through its autograd
     Function, whose backward is the kernel `csrc/flash_attention_bwd.cu`).
@@ -32,9 +34,10 @@ What changes:
   * `cast_params` keeps one `cfg.dtype` copy of every weight instead of the
     `.astype(h.dtype)` at every use: bit-identical, and a decode step then
     reads half the bytes.
-  * With `cfg.moe` the FFN is `models.moe.moe_block` (`impl="local"`) on the
-    normed input; `cast_params` keeps the router in its own type, because
-    the router computes in float32 (a bf16 copy would change its logits).
+  * With `cfg.moe` the FFN is `models.moe.moe_block` (`impl="local"`, or
+    `"ep_shardmap"` over the `mesh` given) on the normed input;
+    `cast_params` keeps the router in its own type, because the router
+    computes in float32 (a bf16 copy would change its logits).
 """
 from __future__ import annotations
 
@@ -183,10 +186,10 @@ def _out_proj(cfg: TransformerConfig, lp: dict, out: torch.Tensor, x: torch.Tens
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(x.dtype)
 
 
-def _ffn_block(cfg: TransformerConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn_block(cfg: TransformerConfig, lp: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"])
     if cfg.moe is not None:
-        return moe_lib.moe_block(cfg.moe, lp, h)
+        return moe_lib.moe_block(cfg.moe, lp, h, mesh=mesh)
     g = h @ lp["w_gate"].to(h.dtype)
     u = h @ lp["w_up"].to(h.dtype)
     return (F.silu(g) * u) @ lp["w_down"].to(h.dtype)
@@ -200,7 +203,7 @@ def _causal_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
     )
 
 
-def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None):
+def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None, mesh=None):
     """One layer over a whole prompt from position 0; with `cache_kv` =
     (ck, cv) of (B, max_seq, Hkv, dh) the new rows are written there."""
     q, k, v = _qkv(cfg, lp, x)
@@ -214,7 +217,7 @@ def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None):
         # what the JAX model reads back from the cache (a no-op cast when it is q's type)
         k, v = k.to(ck.dtype).to(q.dtype), v.to(cv.dtype).to(q.dtype)
     x = x + _out_proj(cfg, lp, _causal_attention(cfg, q, k, v), x)
-    return x + _ffn_block(cfg, lp, x)
+    return x + _ffn_block(cfg, lp, x, mesh)
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -239,17 +242,18 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor
     return x @ head.to(cfg.dtype)
 
 
-def forward(params: dict, tokens, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, V)."""
+def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V).  `mesh`: the engine mesh an MoE
+    layer with impl="ep_shardmap" runs on (the rest ignores it)."""
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(x.shape[1], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in _layers(params, cfg.n_layers):
         if remat:
-            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, use_reentrant=False,
+            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, None, mesh, use_reentrant=False,
                            context_fn=moe_lib.checkpoint_contexts)
         else:
-            x = _prompt_layer(cfg, x, lp, cos, sin)
+            x = _prompt_layer(cfg, x, lp, cos, sin, mesh=mesh)
     return _head(params, x, cfg)
 
 
@@ -271,7 +275,7 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.
     return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig):
+def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig, *, mesh=None):
     """Prefill the cache with a full prompt from position 0 (written in
     place); returns (last_logits (B, V), cache)."""
     x = _embed(params, tokens, cfg)
@@ -280,11 +284,11 @@ def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig):
         raise ValueError(f"prompt of {s} tokens exceeds the cache's {cache['k'].shape[2]} positions")
     cos, sin = rope_table(s, cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     for i in range(cfg.n_layers):
-        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (cache["k"][i], cache["v"][i]))
+        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (cache["k"][i], cache["v"][i]), mesh)
     return _head(params, x[:, -1], cfg), cache
 
 
-def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
+def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """One decode step: tokens (B, 1) at absolute position `pos` (an int, the
     same for every row).  Returns (logits (B, V), cache)."""
     x = _embed(params, tokens, cfg)  # (B, 1, D)
@@ -305,11 +309,11 @@ def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
         cv[:, at] = v[:, 0].to(cv.dtype)
         out = gqa_attention(q, ck, cv, causal=True, q_offset=pos, kv_valid_len=valid)
         x = x + _out_proj(cfg, lp, out, x)
-        x = x + _ffn_block(cfg, lp, x)
+        x = x + _ffn_block(cfg, lp, x, mesh)
     return _head(params, x, cfg)[:, -1], cache
 
 
-def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig):
+def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """Continuous-batching decode: every slot at its own position.
     pos: (B,) absolute write positions; tokens: (B, 1)."""
     x = _embed(params, tokens, cfg)  # (B, 1, D)
@@ -335,5 +339,5 @@ def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: Transfo
         cv[rows, at] = v[:, 0].to(cv.dtype)
         out = gqa_attention(q, ck, cv, causal=False, kv_valid_len=pos + 1)
         x = x + _out_proj(cfg, lp, out, x)
-        x = x + _ffn_block(cfg, lp, x)
+        x = x + _ffn_block(cfg, lp, x, mesh)
     return _head(params, x, cfg)[:, -1], cache

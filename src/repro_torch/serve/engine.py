@@ -10,7 +10,9 @@ The engine is model-agnostic: it takes the prefill and decode callables, so
 tests drive it with a tiny CPU model.  Here the prefill callable writes the
 slot's range of the cache in place (the JAX engine builds a new cache with
 `dynamic_update_slice`); both callables still return the cache, and the
-engine keeps what they return.  Greedy choice is `torch.argmax` on the
+engine keeps what they return.  A model served on an engine mesh (the
+counterpart of serving inside `jax.set_mesh`) gets it through its callables
+(`launch.serve.build_engine(..., mesh=)`).  Greedy choice is `torch.argmax` on the
 logits where they lie (first maximum on ties, as `np.argmax`), with one copy
 of the chosen ids to the host a step.
 """

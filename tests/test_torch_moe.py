@@ -165,8 +165,10 @@ def test_capacity_and_route_log():
 
 
 def test_ep_shardmap_raises():
+    """EP runs over a mesh (tests/test_torch_moe_ep.py); without one it raises,
+    where the reference quietly runs the local path."""
     _, m, lp, x = _case("e8k2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 9"):
+    with pytest.raises(ValueError, match="needs a mesh with the 'model' axis"):
         moe.moe_block(dataclasses.replace(m, impl="ep_shardmap"), _torch(lp), torch.from_numpy(x))
     assert m.padded_experts(16) == 16 and moe.MoEConfig(60, 4, 8).padded_experts(16) == 64
 

@@ -173,8 +173,10 @@ def test_interop_refuses_a_wrong_tree():
 
 
 def test_sharded_lookup_raises_naming_its_roadmap_item():
+    """psum_model runs over a mesh (tests/test_torch_recsys_psum.py); without
+    one it raises, where the reference falls back to the gather."""
     _, _, cfg, p = _pair("smoke")
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(ValueError, match="needs a mesh with the 'model' axis"):
         rec.forward(p, _batch(cfg, 2, 0), dataclasses.replace(cfg, lookup_impl="psum_model"))
 
 

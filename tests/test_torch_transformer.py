@@ -203,7 +203,7 @@ def test_pending_archs_raise():
         get_arch("no-such-arch")
     cfg = get_arch("olmoe-1b-7b").smoke_config()
     ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(ValueError, match="needs a mesh with the 'model' axis"):  # EP runs over a mesh
         tfm.forward(tfm.init_params(ep, device="cpu"), torch.zeros((1, 4), dtype=torch.long), ep)
 
 
