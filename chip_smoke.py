@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine paths, each driven with its kernels' launch counts set to 0 just
+Ten paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -95,7 +95,19 @@ before and read just after (the paper pipeline once more through its CLI):
   published size with `lookup_impl="psum_model"` (its tables row-sharded
   over "model" by `models.sharding.shard_tensor`): `serve_bulk` and 5
   `train_batch` steps; its kernels are `flash_attention` (every EP prefill
-  layer) and `embedding_bag` (one launch a lookup over the sharded slab).
+  layer) and `embedding_bag` (one launch a data row a lookup over the
+  sharded slab);
+* training through the engine mesh's exchanges: gin-tu (5 × 64) at
+  `ogb_products`' feature width trained by halo exchange over the 16 stacked
+  engines on amazon under `DeviceMapper((4, 4))`'s permutation (5 steps at
+  the reference launcher's defaults); olmoe-1b-7b at its published width
+  over 8 of its 16 layers trained with EP on ("data", "model") = (2, 8) for
+  10 steps (batch 8 × 128), beside the local path on the same weights, and
+  qwen2-moe-a2.7b over 2 layers for 3 steps; EP and dcn-v2's `psum_model`
+  (5 `train_batch` steps) over NCCL at world size 1; its kernels are
+  `segment_spmm` (5 launches a halo GIN forward, 4 backward over the
+  transposed halo ELL), `flash_attention` and `flash_attention_bwd` (every
+  EP training step) and `embedding_bag` (every `psum_model` step).
 
 Phases, one JSON line each:
 
@@ -219,11 +231,26 @@ Phases, one JSON line each:
              plain per-engine loop `moe_ep_loop_ref` (the same slots kept,
              outputs within 1e-4); one olmoe layer on the production mesh (Cs 8) against local; dcn-v2
              `serve_bulk` logits of `psum_model` bit-equal to the gather's,
-             one bag launch a lookup, 5 training losses within 1e-6 and the
+             one bag launch a data row a lookup, 5 training losses within 1e-6 and the
              unsharded table gradient within 1e-6 of its largest entry, the
              bag at the slab's shape against its plain version, its bound
              and `F.embedding_bag`; NCCL at world size 1 bit-equal to
              stacked (1, 1)
+  mesh_train   training through the mesh's exchanges: the halo GIN's first
+             loss within 1e-5 and every gradient within 1e-4 of the
+             one-device `gnn.loss_fn`'s, two gradients bit-equal, 5 losses
+             falling, 5 + 4 reduces a step, step ms, peak memory and halo
+             bytes an engine a layer each way, NCCL at world size 1 bit-equal,
+             the transposed halo reduce at D = 64 against its plain version,
+             its bound and `torch.sparse.mm`; olmoe EP and local trained in
+             turns (losses finite and falling, step ms, tokens/s, peak
+             memory, 16 + 8 attention launches and 8 `ep_log` entries a step,
+             Cs, Ce, dropped shares, all-to-all bytes a layer each way), float32
+             EP gradients within 1e-4 of local's at capacity_factor E/k and of
+             autograd through `moe_ep_loop_ref` at 1.25 (the same slots) on 2
+             layers; qwen2-moe's losses (its padded experts no slot); EP's
+             gradients and step and `psum_model`'s 5 steps over NCCL at world
+             size 1 bit-equal to stacked
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -232,7 +259,8 @@ then the contract lines: one `{"kernels": [...]}` object (ell_spmm with its
 flash_attention, flash_attention_bwd, embedding_bag; the attention rows
 with their `moe_train` launches, the backward's with `moe_train_shape`,
 the forward's with `launches_mesh_models`, the bag's with its
-`psum_model` call site),
+`psum_model` call site; every kernel with its `launches_mesh_train`, and
+ell_spmm with its `halo_transpose` call site),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -2930,7 +2958,7 @@ def moe_inputs_seen(layers=None):
         seen.append((lp, x.clone()) if layers is None or len(seen) in layers else None)
         return moe_lib.moe_block(m, lp, x, mesh=mesh)
 
-    tfm.moe_lib = types.SimpleNamespace(moe_block=grab, checkpoint_contexts=moe_lib.checkpoint_contexts)
+    tfm.moe_lib = types.SimpleNamespace(**{**vars(moe_lib), "moe_block": grab})
     try:
         yield seen
     finally:
@@ -3279,8 +3307,9 @@ MOE_GRAD_REL = 1e-5
 MOE_EP, MOE_EP_TORUS = 8, (2, 4)  # expert_device_permutation: one row a sequence, EP 8 on a 2 × 4 torus
 
 
-def train_grads(params, batch, cfg) -> tuple:
-    """Every leaf's gradient of `tfm.loss_fn` on one batch (what a training step takes from autograd)."""
+def train_grads(params, batch, cfg, mesh=None) -> tuple:
+    """Every leaf's gradient of `tfm.loss_fn` on one batch (what a training
+    step takes from autograd); `mesh` is handed to the loss."""
     from repro_torch.models import transformer as tfm
     from repro_torch.train.pytree import tree_leaves
 
@@ -3288,7 +3317,7 @@ def train_grads(params, batch, cfg) -> tuple:
     for p in leaves:
         p.requires_grad_(True)
     try:
-        return torch.autograd.grad(tfm.loss_fn(params, batch, cfg), leaves)
+        return torch.autograd.grad(tfm.loss_fn(params, batch, cfg, mesh=mesh), leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -3580,8 +3609,9 @@ MESH_PROD_TOKENS = 512  # n_l = 2 on 256 engines: Cs at its floor of 8, no slot 
 MESH_PROD_TOL = dict(rtol=1e-4, atol=1e-4)  # one float32 layer: the expert products over other row counts
 MESH_DCN_STEPS = 5
 MESH_DCN_LOSS_TOL = 1e-6
-# the unsharded table gradient against the gather's, of its largest entry, with deterministic adds (the
-# atomic adds of training differ by ~5e-7 of it from run to run: reported beside)
+# the unsharded table gradient against the gather's with its batch looked up a data row at a time, of its
+# largest entry, with deterministic adds (the atomic adds of training differ by ~5e-7 of it from run to run,
+# and the whole batch's gather, its rows summed in one pass, by ~3e-6: both reported beside)
 MESH_DCN_GRAD_REL = 1e-6
 
 
@@ -3675,11 +3705,12 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
     params = tfm.cast_params(params32, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    ep_params = tfm.shard_params(params, ep_cfg, mesh)  # the expert stacks laid out on the mesh, as EP takes them
     runs = {"local": [], "ep": []}
     for name in MESH_TURNS:
         c = ep_cfg if name == "ep" else cfg
-        engine = build_engine(c, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device,
-                              mesh=mesh if name == "ep" else None)
+        engine = build_engine(c, ep_params if name == "ep" else params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                              device=device, mesh=mesh if name == "ep" else None)
         engine.cache, _ = engine.prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
         _, engine.cache = engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
                                         torch.zeros(SERVE_SLOTS, dtype=torch.long))
@@ -3702,7 +3733,7 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
 
             def one_prefill():
                 cache = tfm.init_kv_cache(c, 1, toks.shape[1], dtype=torch.float32, device=device)
-                return tfm.prefill(params, toks, cache, c, mesh=mesh)[0], cache
+                return tfm.prefill(ep_params, toks, cache, c, mesh=mesh)[0], cache
 
             (la, ca), log = ep_logged(one_prefill)
             lb, cb = one_prefill()
@@ -3738,7 +3769,7 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
     out["ep_vs_local_prefill_tok_s"] = out["prefill_tok_s"]["ep"] / out["prefill_tok_s"]["local"]
     out["ep_vs_local_decode_ms"] = out["decode_ms_a_step"]["ep"] / out["decode_ms_a_step"]["local"]
     out["flash_attention_launches_a_drain"] = {k: v[0]["flash_attention_launches"] for k, v in runs.items()}
-    del params
+    del params, ep_params
     gc.collect()
     torch.cuda.empty_cache()
     layer0 = None
@@ -3756,6 +3787,8 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
 
         cf = m.num_experts / m.top_k
         want, local_drop = local_dropped(lambda: pre(f32_cfg(cf, "local")))
+        layer0 = {k: v.clone() for k, v in tfm._layer(params32, 0).items()}
+        params32 = tfm.shard_params(params32, ep_cfg, mesh)  # from here EP's: the whole stacks go
         got, log = ep_logged(lambda: pre(f32_cfg(cf, "ep_shardmap")))
         routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
         err = float((got - want).abs().max())
@@ -3775,7 +3808,7 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
         loop = []
         for li, (lp, x) in zip(MESH_LOOP_LAYERS, seen):
             got, log = ep_logged(lambda: moe_lib.moe_block(e125.moe, lp, x, mesh=mesh))
-            plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, lp, x, mesh)
+            plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, moe_lib.unshard_experts(m, lp, mesh), x, mesh)
             (r,) = log
             same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
             routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
@@ -3791,7 +3824,6 @@ def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: 
         out["float32_layers_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "tokens": MESH_F32_PROMPT,
                                                "tolerance": MESH_LOOP_TOL, "layers": loop}
         del seen, got, plain
-        layer0 = {k: v[0].clone() for k, v in params32["layers"].items()}
     del params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -3812,7 +3844,8 @@ def production_layer(device: torch.device, m, lp: dict, timer: Timer, seed: int)
     m4 = dataclasses.replace(m, capacity_factor=4.0)
     ep = dataclasses.replace(m4, impl="ep_shardmap")
     want, local_drop = local_dropped(lambda: moe_lib.moe_block(m4, lp, x))
-    got, log = ep_logged(lambda: moe_lib.moe_block(ep, lp, x, mesh=mesh))
+    lp_ep = moe_lib.shard_experts(ep, lp, mesh)
+    got, log = ep_logged(lambda: moe_lib.moe_block(ep, lp_ep, x, mesh=mesh))
     routes = ep_stats(log, m, 16, MESH_PROD_TOKENS, x.shape[-1], 4)
     err = float((got - want).abs().max())
     check(routes["Cs"] == 8, f"Cs {routes['Cs']} on the production mesh, want its floor of 8")
@@ -3820,7 +3853,7 @@ def production_layer(device: torch.device, m, lp: dict, timer: Timer, seed: int)
           f"slots dropped on the production mesh's layer: local {local_drop}, EP {routes}")
     check(torch.allclose(got, want, **MESH_PROD_TOL), f"the production mesh's EP layer vs local: {err}")
     with torch.no_grad():
-        ep_ms = timer.device_ms(lambda: moe_lib.moe_block(ep, lp, x, mesh=mesh), calls=3, reps=5)
+        ep_ms = timer.device_ms(lambda: moe_lib.moe_block(ep, lp_ep, x, mesh=mesh), calls=3, reps=5)
         local_ms = timer.device_ms(lambda: moe_lib.moe_block(m4, lp, x), calls=3, reps=5)
     return {"mesh": dict(mesh.shape), "engines": 256, "tokens": MESH_PROD_TOKENS, "dtype": "float32",
             "capacity_factor": 4.0, "Cs": routes["Cs"], "Ce": routes["Ce"], "max_abs_err_vs_local": err,
@@ -3828,12 +3861,32 @@ def production_layer(device: torch.device, m, lp: dict, timer: Timer, seed: int)
             "all_to_all_bytes": routes["all_to_all_bytes_a_layer"], "ep_ms": ep_ms, "local_ms": local_ms}, x
 
 
+@contextlib.contextmanager
+def bag_by_rows(rows: int):
+    """`models.recsys`'s bag called once for each of `rows` equal slices of
+    the batch (the gather route's lookup split as psum_model splits it over
+    the data axis); its own call, as before, after the block."""
+    from repro_torch.models import recsys as rec
+
+    bag = rec.embedding_bag
+
+    def by_rows(tables, ids, weights=None, *, impl="auto"):
+        ws = [None] * rows if weights is None else weights.chunk(rows)
+        return torch.cat([bag(tables, i, w, impl=impl) for i, w in zip(ids.chunk(rows), ws)])
+
+    rec.embedding_bag = by_rows
+    try:
+        yield
+    finally:
+        rec.embedding_bag = bag
+
+
 def mesh_recsys(device: torch.device, seed: int, timer: Timer, mesh) -> tuple[dict, dict, dict]:
     """dcn-v2 at its published size with lookup_impl="psum_model" on `mesh`,
     its tables row-sharded by `shard_tensor`: `serve_bulk` logits against the
     gather path's (bit-equal), MESH_DCN_STEPS training steps at `train_batch`
     against the gather path's (losses, and the first step's unsharded table
-    gradient), one bag launch a lookup; the bag kernel at the slab's shape
+    gradient), one bag launch a data row a lookup; the bag kernel at the slab's shape
     against its plain version, its bound and `F.embedding_bag`.  Returns (the
     entry, the kernel's call site, what the NCCL check reuses)."""
     from repro_torch.configs.base import RECSYS_SHAPES
@@ -3872,7 +3925,8 @@ def mesh_recsys(device: torch.device, seed: int, timer: Timer, mesh) -> tuple[di
         serve_launches = embedding_bag.launches
         want = rec.forward(params, bulk, cfg)
         torch.cuda.synchronize()
-    check(serve_launches == 1, f"the psum_model forward launched the bag {serve_launches} times, want 1")
+    rows = int(np.prod([n for a, n in mesh.shape.items() if a != "model"]))  # one bag launch a data row
+    check(serve_launches == rows, f"the psum_model forward launched the bag {serve_launches} times, want {rows}")
     check(got.shape == want.shape and torch.equal(got, want), "serve_bulk: psum_model logits vs the gather's")
     with torch.inference_mode():
         bulk_ms = timer.call_ms(lambda: rec.forward(sharded, bulk, ps, mesh=mesh), calls=3, reps=5)
@@ -3898,12 +3952,16 @@ def mesh_recsys(device: torch.device, seed: int, timer: Timer, mesh) -> tuple[di
     grads = {"atomic_rel_err": rel(table_grad(sharded, ps, mesh=mesh), g_gather),
              "atomic_gather_run_to_run_rel": rel(table_grad(params, cfg), g_gather)}
     del g_gather
-    # the same with deterministic algorithms (`index_add_` adds a row's terms in index order): the routes add
-    # the same nonzero terms in the same order, the sharded one also zeros for the ids its shards do not own
+    # the same with deterministic algorithms (`index_add_` adds a row's terms in index order), against the
+    # gather route with its batch looked up one data row at a time, as psum_model splits it (each row's table
+    # gradient summed apart, then the rows added): the routes add the same nonzero terms in the same order, the
+    # sharded one also zeros for the ids its shards do not own; beside it, the whole batch's gather
     with deterministic_algorithms():
-        g_gather = table_grad(params, cfg)
-        grads["rel_err"] = rel(table_grad(sharded, ps, mesh=mesh), g_gather)
-    del g_gather
+        g_psum = table_grad(sharded, ps, mesh=mesh)
+        grads["rel_err_whole_batch_gather"] = rel(g_psum, table_grad(params, cfg))
+        with bag_by_rows(rows):
+            grads["rel_err"] = rel(g_psum, table_grad(params, cfg))
+    del g_psum
     check(grads["rel_err"] <= MESH_DCN_GRAD_REL,
           f"unsharded table gradient vs the gather's (deterministic adds): {grads}")
     lr_fn = cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)
@@ -3930,8 +3988,8 @@ def mesh_recsys(device: torch.device, seed: int, timer: Timer, mesh) -> tuple[di
         r["wall_ms_a_step"] = float(np.mean([run["wall_ms_a_step"] for run in r["runs"]]))
         r["embedding_bag_launches"] = r["runs"][0]["embedding_bag_launches"]
         r["runs_bit_equal"] = r["runs"][0]["losses"] == r["runs"][1]["losses"]
-    check(all(run["embedding_bag_launches"] == MESH_DCN_STEPS for run in losses["psum_model"]["runs"]),
-          f"psum_model training launched the bag {losses['psum_model']['runs']} times, want {MESH_DCN_STEPS}")
+    check(all(run["embedding_bag_launches"] == MESH_DCN_STEPS * rows for run in losses["psum_model"]["runs"]),
+          f"psum_model training launched the bag {losses['psum_model']['runs']} times, want {MESH_DCN_STEPS * rows}")
     loss_diff = float(np.max(np.abs(np.array(losses["psum_model"]["losses"]) - np.array(losses["gather"]["losses"]))))
     check(all(np.isfinite(losses["psum_model"]["losses"])) and loss_diff <= MESH_DCN_LOSS_TOL,
           f"psum_model losses vs the gather's: {losses}")
@@ -3994,14 +4052,14 @@ def nccl_world_one_models(device: torch.device, m, lp: dict, x: torch.Tensor, dc
     cfg = dcn["cfg"]
     slab = shard_tensor(dcn["tables"], rec.param_specs(cfg, stacked)["tables"], stacked)
     with torch.no_grad():
-        want_ep = moe_lib.moe_block(ep, lp, x, mesh=stacked)
+        want_ep = moe_lib.moe_block(ep, moe_lib.shard_experts(ep, lp, stacked), x, mesh=stacked)
         want_bag = rec.embedding_lookup(cfg, slab, dcn["ids"], mesh=stacked)
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
         try:
             pg = make_mesh((1, 1), MESH_AXES, backend="process_group", device=device)
             with torch.no_grad():
-                got_ep = moe_lib.moe_block(ep, lp, x, mesh=pg)
+                got_ep = moe_lib.moe_block(ep, moe_lib.shard_experts(ep, lp, pg), x, mesh=pg)
                 got_bag = rec.embedding_lookup(cfg, slab, dcn["ids"], mesh=pg)
             torch.cuda.synchronize()
             backend = dist.get_backend()
@@ -4062,6 +4120,456 @@ def phase_mesh_models(device: torch.device, seed: int, smi: str | None, timer: T
     return out, site
 
 
+# --------------------------------------------------------------------------- mesh_train
+
+# Training through the engine mesh's exchanges: (e′) the halo GIN over DIST_ENGINES stacked engines on amazon,
+# (f′) olmoe-1b-7b and qwen2-moe-a2.7b with EP on MESH_SHAPE, (f″) dcn-v2's psum_model over NCCL at world size 1.
+HALO_TRAIN_STEPS = 5
+HALO_LOSS_RTOL = 1e-5  # the halo GIN's first loss against the one-device gnn.loss_fn's, same weights and mask
+MESH_GRAD_REL = 1e-4  # each gradient leaf against the largest entry of its reference's
+# (b‴)'s cut; at a peak above EP_TRAIN_PEAK_GB it would be 6 layers
+EP_TRAIN_LAYERS, EP_TRAIN_STEPS, EP_TRAIN_PEAK_GB = 8, 10, 78.0
+# the float32 gradient checks run on these layers: EP against local at capacity_factor E/k (neither drops),
+# and at the config's against autograd through moe_ep_loop_ref (the same slots)
+EP_F32_LAYERS = 2
+EP_QWEN_LAYERS, EP_QWEN_STEPS = 2, 3
+PSUM_NCCL_STEPS = 5
+
+
+def rel_errs(got, want, names) -> dict:
+    """{name: max |got − want| / max |want|} over matching leaves."""
+    return {n: float((g.float() - w.float()).abs().max()) / (float(w.float().abs().max()) + 1e-30)
+            for n, g, w in zip(names, got, want)}
+
+
+def halo_train(device: torch.device, graph, perm: np.ndarray, seed: int, timer: Timer) -> tuple[dict, int, dict]:
+    """(e′): gin-tu (published width and depth) at `ogb_products`' feature
+    width trained by halo exchange over DIST_ENGINES stacked engines under
+    `perm`, HALO_TRAIN_STEPS steps at the reference launcher's defaults
+    (AdamW on its schedule from lr 1e-3, clip 1.0): the first loss and every
+    gradient against the one-device `gnn.loss_fn`'s on the same weights and
+    mask, two gradients bit-equal, losses finite and falling, NCCL at world
+    size 1 bit-equal to stacked; step ms, peak memory, reduce launches a step
+    (forward and backward apart), halo bytes an engine a layer each way.
+    Returns (the entry, the training's `segment_spmm` launches, the
+    transposed halo reduce's call site)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import GraphBatcher, to_device
+    from repro_torch.graph.distributed import make_engines_mesh
+    from repro_torch.graph.halo import build_halo_plan, plan_sizes
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn_dist import gin_halo_loss_fn, pack_batch, shard_batch
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_map
+
+    cfg = get_arch(GNN_ARCH).model_config(GNN_WIDE_CELL)
+    n = graph.num_nodes
+    plan = build_halo_plan(graph.src, graph.dst, n, DIST_ENGINES)
+    host = GraphBatcher(graph, d_feat=cfg.d_in, n_classes=cfg.d_out, seed=seed).full_batch()
+    mesh = make_engines_mesh(perm, num_engines=DIST_ENGINES, device=device)
+    t0 = time.perf_counter()
+    batch = shard_batch(pack_batch(plan, host["x"], host["labels"], host["train_mask"]), mesh, transpose=True)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    params = gnn.init_params(cfg, seed, device=device)
+    names = ["/".join(map(str, path)) for path, _ in tree_leaves_with_path(params)]
+
+    def grads(loss_fn, p, b, m=None):
+        """(loss, every leaf's gradient, forward counts, backward counts)."""
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, fwd = counted(lambda: loss_fn(p, b, cfg, m) if m is not None else loss_fn(p, b, cfg))
+            g, bwd = counted(lambda: torch.autograd.grad(loss, leaves))
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        return loss.detach(), g, fwd, bwd
+
+    loss, g, fwd, bwd = grads(gin_halo_loss_fn, params, batch, mesh)
+    r = {"arch": GNN_ARCH, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden, "d_in": cfg.d_in,
+         "engines": DIST_ENGINES, "plan": plan_sizes(plan), "shard_batch_host_s": shard_s,
+         "reduce_launches_a_step": {"forward": check_only_reduces(fwd, cfg.n_layers, "a halo GIN forward"),
+                                    "backward": check_only_reduces(bwd, cfg.n_layers - 1, "a halo GIN backward")}}
+    again = grads(gin_halo_loss_fn, params, batch, mesh)
+    r["grads_bit_equal_two_runs"] = bool(torch.equal(loss, again[0]) and bit_equal(g, again[1]))
+    check(r["grads_bit_equal_two_runs"], "two halo GIN gradients differ")
+    del again
+    full = to_device(host, device)
+    full["ell"] = gnn.batch_ell(host, device=device, transpose=True)
+    loss1, g1, _, _ = grads(gnn.loss_fn, params, full)
+    del full
+    r["first_loss"], r["one_device_first_loss"] = float(loss), float(loss1)
+    r["first_loss_rel_err"] = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    r["grads_rel_err_vs_one_device"] = rel_errs(g, g1, names)
+    r["tolerance"] = {"first_loss_rel": HALO_LOSS_RTOL, "grad_rel_to_largest": MESH_GRAD_REL}
+    check(r["first_loss_rel_err"] <= HALO_LOSS_RTOL, f"halo GIN first loss vs one device: {r['first_loss_rel_err']}")
+    check(max(r["grads_rel_err_vs_one_device"].values()) <= MESH_GRAD_REL,
+          f"halo GIN gradients vs one device: {r['grads_rel_err_vs_one_device']}")
+    del g, g1
+
+    # training, the reference launcher's optimizer and schedule
+    init, step = make_train_step(lambda p, b: gin_halo_loss_fn(p, b, cfg, mesh),
+                                 adamw(cosine_schedule(TRAIN_LR, 10, HALO_TRAIN_STEPS)))
+    state = init(tree_map(torch.clone, params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def loop():
+        nonlocal state
+        ends, losses = [time.perf_counter()], []
+        for _ in range(HALO_TRAIN_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))  # the host waits for the step here
+            ends.append(time.perf_counter())
+        return losses, ends
+
+    (losses, ends), counts = counted(loop)
+    del state
+    r["losses"], r["steps"] = losses, HALO_TRAIN_STEPS
+    r["step_ms"] = float(np.median(np.diff(ends)[1:]) * 1e3)
+    r["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = check_only_reduces(counts, (2 * cfg.n_layers - 1) * HALO_TRAIN_STEPS, "halo GIN training")
+    r["segment_spmm_launches"] = launches
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"halo GIN losses: {losses}")
+    # the exchange's bytes an engine: forward at every layer's input width; backward at every layer but the
+    # first (the input features need no gradient), the cotangents of the same rows
+    widths = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+    r["halo_bytes_an_engine_a_layer"] = {"forward": {f"D{d}": plan.halo_bytes_per_device(d) for d in sorted(set(widths))},
+                                         "backward": {f"D{cfg.d_hidden}": plan.halo_bytes_per_device(cfg.d_hidden)}}
+    r["halo_bytes_a_step_all_engines"] = DIST_ENGINES * (sum(plan.halo_bytes_per_device(d) for d in widths)
+                                                         + sum(plan.halo_bytes_per_device(d) for d in widths[1:]))
+
+    # NCCL at world size 1 against the stacked backend, one engine
+    plan1 = build_halo_plan(graph.src, graph.dst, n, 1)
+    packed1 = pack_batch(plan1, host["x"], host["labels"], host["train_mask"])
+    one = make_engines_mesh(num_engines=1, device=device)
+    want = grads(gin_halo_loss_fn, params, shard_batch(packed1, one, transpose=True), one)[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            pg = make_engines_mesh(backend="process_group", device=device)
+            got = grads(gin_halo_loss_fn, params, shard_batch(packed1, pg, transpose=True), pg)[:2]
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    r["nccl_world_one_bit_equal_stacked"] = bool(torch.equal(got[0], want[0]) and bit_equal(got[1], want[1]))
+    check(r["nccl_world_one_bit_equal_stacked"], "halo GIN gradients over NCCL at world size 1 vs stacked")
+    del got, want
+
+    # the new call site of the reduce: the halo sum's transpose, the backward at D = d_hidden
+    gen = torch.Generator(device).manual_seed(seed)
+    tr = batch["ell"].transpose
+    x = torch.randn((tr.num_nodes, cfg.d_hidden), device=device, generator=gen)
+    site = call_site_check(tr, x, timer, lambda x, ell: (gin_reduce_bound_ms(x, ell), "bytes"))
+    del batch, params, x, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, launches, site
+
+
+def lm_train_run(cfg, batches: list, device: torch.device, seed: int, mesh=None) -> dict:
+    """`len(batches)` training steps of `cfg` from the seed's weights (for EP
+    laid out on `mesh`) at the launcher's defaults: losses, step ms, peak
+    memory, each kernel's launches, and for EP its `EpRoute`s."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+
+    params = tfm.init_params(cfg, seed, device=device)
+    if mesh is not None:
+        params = tfm.shard_params(params, cfg, mesh)
+    opt = adamw(cosine_schedule(TRAIN_LR, 10, len(batches)), mesh=mesh, sharded=tfm.sharded_specs(cfg))
+    init, step = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg, mesh=mesh), opt)
+    state = init(params)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def loop():
+        nonlocal state
+        ends, losses = [time.perf_counter()], []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            ends.append(time.perf_counter())
+        return losses, ends
+
+    log = []
+    moe_lib.moe_block.ep_log = log if mesh is not None else None
+    try:
+        (losses, ends), counts = counted(loop)
+    finally:
+        moe_lib.moe_block.ep_log = None
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = float(np.median(np.diff(ends)[1:]) * 1e3)
+    tokens = batches[0]["tokens"].numel()
+    return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "max_memory_allocated_gb": peak, "launches": counts, "ep_log": log}
+
+
+def ep_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
+    """(f′): olmoe-1b-7b at its published width over EP_TRAIN_LAYERS layers
+    trained EP_TRAIN_STEPS steps with EP on `mesh` and with the local path on
+    the same weights and batches, in turns (MESH_TURNS); its float32
+    gradients on EP_F32_LAYERS layers against local's at capacity_factor E/k
+    and, layer by layer at the config's, against autograd through
+    `moe_ep_loop_ref`; qwen2-moe-a2.7b over EP_QWEN_LAYERS layers for
+    EP_QWEN_STEPS steps.  Returns (the entry, the first EP run's and qwen's
+    kernel launches)."""
+    import itertools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_unflatten
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).model_config(), n_layers=EP_TRAIN_LAYERS)
+    m, L = cfg.moe, cfg.n_layers
+    ep = mesh.shape[m.ep_axis]
+    ep_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"))
+
+    def token_batches(vocab, steps):
+        data = TokenPipeline(vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=seed)
+        return [to_device(b, device) for b in itertools.islice(data, steps)]
+
+    batches = token_batches(cfg.vocab, EP_TRAIN_STEPS)
+    runs = {"local": [], "ep": []}
+    for name in MESH_TURNS:
+        r = lm_train_run(ep_cfg if name == "ep" else cfg, batches, device, seed, mesh if name == "ep" else None)
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0], f"olmoe {name}: {r['losses']}")
+        check(r["launches"]["flash_attention"] == 2 * L * EP_TRAIN_STEPS
+              and r["launches"]["flash_attention_bwd"] == L * EP_TRAIN_STEPS,
+              f"olmoe {name}: attention launches {r['launches']}")
+        if name == "ep":
+            check(len(r["ep_log"]) == L * EP_TRAIN_STEPS, f"ep_log: {len(r['ep_log'])} entries, want one a layer a step")
+        runs[name].append(r)
+    first = runs["ep"][0]
+    routes = ep_stats(first["ep_log"][:L], m, ep, batches[0]["tokens"].numel(), cfg.d_model, 2)
+    last = ep_stats(first["ep_log"][-L:], m, ep, batches[0]["tokens"].numel(), cfg.d_model, 2)
+    out = {"arch": MOE_ARCH, "layers": L, "steps": EP_TRAIN_STEPS, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "mesh": dict(mesh.shape), "engines": mesh.num_engines, "turns": list(MESH_TURNS),
+           "cuts": [f"{L} of {get_arch(MOE_ARCH).n_layers} layers, as the moe_train phase (at 16 the training "
+                    "state needs 111 GB)"],
+           "losses": {k: v[0]["losses"] for k, v in runs.items()},
+           "ep_runs_losses_bit_equal": first["losses"] == runs["ep"][1]["losses"],
+           "step_ms": {k: float(np.mean([r["step_ms"] for r in v])) for k, v in runs.items()},
+           "tokens_per_s": {k: float(np.mean([r["tokens_per_s"] for r in v])) for k, v in runs.items()},
+           "max_memory_allocated_gb": {k: max(r["max_memory_allocated_gb"] for r in v) for k, v in runs.items()},
+           "runs": {k: [{f: r[f] for f in ("step_ms", "tokens_per_s", "max_memory_allocated_gb")} for r in v]
+                    for k, v in runs.items()},
+           "flash_attention_launches_a_step": first["launches"]["flash_attention"] / EP_TRAIN_STEPS,
+           "flash_attention_bwd_launches_a_step": first["launches"]["flash_attention_bwd"] / EP_TRAIN_STEPS,
+           "ep_log_entries_a_step": len(first["ep_log"]) / EP_TRAIN_STEPS,
+           "routes_first_step": routes,
+           "routes_last_step": {k: last[k] for k in ("stage1_dropped_share_mean", "stage2_dropped_share_mean")},
+           "all_to_all_bytes_a_layer": {"forward": routes["all_to_all_bytes_a_layer"],
+                                        "backward": routes["all_to_all_bytes_a_layer"]},
+           "peak_limit_gb": EP_TRAIN_PEAK_GB}
+    out["ep_vs_local_step_ms"] = out["step_ms"]["ep"] / out["step_ms"]["local"]
+    check(out["max_memory_allocated_gb"]["ep"] <= EP_TRAIN_PEAK_GB,
+          f"EP training's peak {out['max_memory_allocated_gb']['ep']} GB at {L} layers: take 6")
+    launches = dict(first["launches"])
+    del runs, first
+
+    # float32 gradients on EP_F32_LAYERS layers
+    f32 = dataclasses.replace(cfg, n_layers=EP_F32_LAYERS, dtype=torch.float32)
+    cf = m.num_experts / m.top_k
+    loc = dataclasses.replace(f32, moe=dataclasses.replace(m, capacity_factor=cf))
+    e_cf = dataclasses.replace(loc, moe=dataclasses.replace(loc.moe, impl="ep_shardmap"))
+    params = tfm.init_params(f32, seed, device=device)
+    names = ["/".join(map(str, p)) for p, _ in tree_leaves_with_path(params)]
+    want, local_drop = local_dropped(lambda: train_grads(params, batches[0], loc))
+    sharded = tfm.shard_params(params, e_cf, mesh)
+    got, log = ep_logged(lambda: train_grads(sharded, batches[0], e_cf, mesh))
+    ep_drop = sum(int((r.stage1 - r.Cs).clamp_min(0).sum()) + int((r.stage2[:, :-1] - r.Ce).clamp_min(0).sum())
+                  for r in log)
+    got = tree_leaves(tfm.unshard_params(tree_unflatten(sharded, got), e_cf, mesh))
+    check(local_drop == 0 and ep_drop == 0, f"slots dropped at capacity_factor {cf}: local {local_drop}, EP {ep_drop}")
+    rel = rel_errs(got, want, names)
+    check(max(rel.values()) <= MESH_GRAD_REL, f"float32 EP gradients vs local at capacity_factor {cf}: {rel}")
+    out["float32_grads_vs_local"] = {"layers": EP_F32_LAYERS, "capacity_factor": cf, "Cs": log[0].Cs, "Ce": log[0].Ce,
+                                     "max_rel_err": max(rel.values()), "rel_err_by_leaf": rel,
+                                     "tolerance_rel": MESH_GRAD_REL}
+    del want, got
+    # the drop path at the config's capacity factor: each layer's EP block against the plain per-engine loop
+    e125 = dataclasses.replace(f32, moe=dataclasses.replace(m, impl="ep_shardmap"))
+    with torch.no_grad():
+        seen = moe_layer_inputs(lambda: tfm.forward(sharded, batches[0]["tokens"], e125, mesh=mesh),
+                                layers=tuple(range(EP_F32_LAYERS)))
+    keys = ["router", *moe_lib.EXPERT_KEYS]
+    dy = torch.randn(seen[0][1].shape, generator=torch.Generator(device=device).manual_seed(seed + 5),
+                     device=device)
+    loop = []
+    for li, (lp, x) in enumerate(seen[:EP_F32_LAYERS]):
+        w = {k: lp[k].detach().clone().requires_grad_(True) for k in keys}
+        xi = x.clone().requires_grad_(True)
+        out_ep, log = ep_logged(lambda: moe_lib.moe_block(e125.moe, w, xi, mesh=mesh))
+        g_ep = torch.autograd.grad((out_ep * dy).sum(), [xi, *w.values()])
+        g_ep = [g_ep[0], *moe_lib.unshard_experts(m, dict(zip(keys, g_ep[1:])), mesh).values()]
+        whole = {k: v.detach().clone().requires_grad_(True) for k, v in moe_lib.unshard_experts(m, w, mesh).items()}
+        xp = x.clone().requires_grad_(True)
+        plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, whole, xp, mesh)
+        g_plain = torch.autograd.grad((plain * dy).sum(), [xp, *(whole[k] for k in keys)])
+        (r,) = log
+        same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
+        stats = ep_stats(log, m, ep, x.shape[0] * x.shape[1], cfg.d_model, 4)
+        rel = rel_errs(g_ep, g_plain, ["input", *keys])
+        loop.append({"layer": li, "same_slots": same, "Cs": r.Cs, "Ce": r.Ce, "max_rel_err": max(rel.values()),
+                     "rel_err_by_leaf": rel, "stage1_dropped_share": stats["stage1_dropped_share_mean"],
+                     "stage2_dropped_share": stats["stage2_dropped_share_mean"]})
+        check(same, f"layer {li}: EP and the plain loop keep other slots")
+        check(max(rel.values()) <= MESH_GRAD_REL, f"layer {li}: EP gradients vs the plain loop's: {rel}")
+    out["float32_layers_grads_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "layers": loop,
+                                                 "inputs": "each layer's input in a float32 EP forward of the "
+                                                           "first batch", "tolerance_rel": MESH_GRAD_REL}
+    del params, sharded, seen, w, whole, g_ep, g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen2-moe-a2.7b: the shared expert beside EP, 60 experts padded to 64
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=EP_QWEN_LAYERS)
+    wide = dataclasses.replace(wide, moe=dataclasses.replace(wide.moe, impl="ep_shardmap"))
+    q = lm_train_run(wide, token_batches(wide.vocab, EP_QWEN_STEPS), device, seed, mesh)
+    q_routes = ep_stats(q["ep_log"], wide.moe, ep, LM_TRAIN_BATCH * LM_TRAIN_SEQ, wide.d_model, 2)
+    check(all(np.isfinite(q["losses"])), f"qwen2-moe EP losses {q['losses']}")
+    check(q_routes["padded_expert_slots"] == 0, "qwen2-moe: a padded expert got a slot")
+    check(q["launches"]["flash_attention"] == 2 * EP_QWEN_LAYERS * EP_QWEN_STEPS, f"qwen2-moe: {q['launches']}")
+    out["qwen"] = {"arch": MOE_WIDE_ARCH, "layers": EP_QWEN_LAYERS, "steps": EP_QWEN_STEPS,
+                   "cuts": [f"{EP_QWEN_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, as the moe_train phase"],
+                   "padded_experts": wide.moe.padded_experts(ep), "padded_expert_slots": 0,
+                   **{k: q[k] for k in ("losses", "step_ms", "tokens_per_s", "max_memory_allocated_gb")},
+                   "Cs": q_routes["Cs"], "Ce": q_routes["Ce"]}
+    return out, {"ep": launches, "qwen": q["launches"]}
+
+
+def nccl_world_one_train(device: torch.device, seed: int) -> dict:
+    """EP (olmoe over EP_F32_LAYERS layers, bf16 activations: one step's
+    gradients and updated weights) and dcn-v2's psum_model (PSUM_NCCL_STEPS
+    `train_batch` steps: losses and final tables) over the "process_group"
+    backend, NCCL at world size 1 on a (1, 1) mesh, against the stacked (1,
+    1) mesh under `deterministic_algorithms()`: bit-equal.  The group is
+    destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import RecsysPipeline, TokenPipeline, to_device
+    from repro_torch.graph.distributed import make_mesh
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.models import recsys as rec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import shard_tensor
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.pytree import tree_leaves
+
+    lm = dataclasses.replace(get_arch(MOE_ARCH).model_config(), n_layers=EP_F32_LAYERS)
+    lm = dataclasses.replace(lm, moe=dataclasses.replace(lm.moe, impl="ep_shardmap"))
+    tokens = to_device(next(iter(TokenPipeline(lm.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=seed))), device)
+    dcn = dataclasses.replace(get_arch(RECSYS_ARCH).model_config(), lookup_impl="psum_model")
+    data = iter(RecsysPipeline(dcn.n_dense, dcn.n_sparse, dcn.rows_per_table, RECSYS_SHAPES["train_batch"]["batch"],
+                               seed=seed))
+    dcn_batches = [to_device(next(data), device) for _ in range(PSUM_NCCL_STEPS)]
+
+    def runs(mesh) -> dict:
+        with deterministic_algorithms():
+            p = tfm.shard_params(tfm.init_params(lm, seed, device=device), lm, mesh)
+            g = train_grads(p, tokens, lm, mesh)
+            init, step = make_train_step(lambda q, b: tfm.loss_fn(q, b, lm, mesh=mesh),
+                                         adamw(TRAIN_LR, mesh=mesh, sharded=tfm.sharded_specs(lm)))
+            st, _ = step(init(p), tokens)
+            ep = {"grads": [t.cpu() for t in g], "params": [t.cpu() for t in tree_leaves(st.params)]}
+            del p, g, st
+            p = rec.init_params(dcn, seed, device=device)
+            spec = rec.param_specs(dcn, mesh)["tables"]
+            p["tables"] = shard_tensor(p["tables"], spec, mesh)
+            init, step = make_train_step(lambda q, b: rec.loss_fn(q, b, dcn, mesh=mesh),
+                                         adamw(cosine_schedule(TRAIN_LR, 10, PSUM_NCCL_STEPS), mesh=mesh,
+                                               sharded={("tables",): spec}))
+            st, losses = init(p), []
+            del p
+            embedding_bag.launches = 0
+            for b in dcn_batches:
+                st, metrics = step(st, b)
+                losses.append(float(metrics["loss"]))
+            psum = {"losses": losses, "tables": st.params["tables"].cpu(), "launches": embedding_bag.launches}
+            del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"ep": ep, "psum": psum}
+
+    want = runs(make_mesh((1, 1), MESH_AXES, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            got = runs(make_mesh((1, 1), MESH_AXES, backend="process_group", device=device))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    r = {"backend": backend, "world_size": 1, "mesh": {a: 1 for a in MESH_AXES},
+         "ep_layers": EP_F32_LAYERS, "psum_model_steps": PSUM_NCCL_STEPS, "psum_model_losses": got["psum"]["losses"],
+         "ep_grads_and_step_bit_equal_stacked": bool(bit_equal(got["ep"]["grads"], want["ep"]["grads"])
+                                                     and bit_equal(got["ep"]["params"], want["ep"]["params"])),
+         "psum_model_bit_equal_stacked": bool(got["psum"]["losses"] == want["psum"]["losses"]
+                                              and torch.equal(got["psum"]["tables"], want["psum"]["tables"])),
+         "embedding_bag_launches": got["psum"]["launches"] + want["psum"]["launches"],
+         "deterministic_algorithms": True}
+    check(r["ep_grads_and_step_bit_equal_stacked"] and r["psum_model_bit_equal_stacked"],
+          f"training over NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
+    check(got["psum"]["launches"] == PSUM_NCCL_STEPS, f"psum_model launched the bag {got['psum']['launches']} "
+          f"times in {PSUM_NCCL_STEPS} steps")
+    return r
+
+
+def phase_mesh_train(device: torch.device, graph, perm: np.ndarray, seed: int, smi: str | None,
+                     timer: Timer) -> tuple[dict, dict, dict]:
+    """Training through the engine mesh's exchanges: (e′) `halo_train`, (f′)
+    `ep_train` on MESH_SHAPE, (f″) and EP's check at world size 1,
+    `nccl_world_one_train`.  Returns (the `mesh_train` line, each kernel's
+    launches in the phase's training runs, the transposed halo reduce's call
+    site)."""
+    from repro_torch.graph.distributed import make_mesh
+
+    t0 = time.perf_counter()
+    halo, halo_launches, site = halo_train(device, graph, perm, seed, timer)
+    halo["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    ep, ep_launches = ep_train(device, seed, mesh)
+    ep["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = nccl_world_one_train(device, seed)
+    nccl["seconds"] = time.perf_counter() - t0
+    out = {"halo_gin": halo, "olmoe_ep": ep, "nccl": nccl, "card": smi,
+           "weights": "random, from a seeded torch.Generator on the card (the moe_train and recsys phases' seeds)",
+           "timing": "step ms: the host clock between the ends of consecutive steps (each ends on the loss's read), "
+                     "median of all but the first; EP and local in turns, means of two; reduce ms: CUDA-graph "
+                     "replays (device time)"}
+    say("mesh_train", **out)
+    counts = {"segment_spmm": halo_launches, "flash_attention": ep_launches["ep"]["flash_attention"],
+              "flash_attention_bwd": ep_launches["ep"]["flash_attention_bwd"],
+              "flash_attention_qwen": ep_launches["qwen"]["flash_attention"],
+              "flash_attention_bwd_qwen": ep_launches["qwen"]["flash_attention_bwd"],
+              "embedding_bag": nccl["embedding_bag_launches"]}
+    return out, counts, site
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4113,7 +4621,7 @@ def main() -> int:
     gnn, gnn_launches = phase_gnn(device, graph, args.seed, info["nvidia_smi"], timer)
     torch.cuda.empty_cache()
     dist_out, dist_launches = phase_distributed(device, graph, args.seed, info["nvidia_smi"], timer)
-    del graph, small
+    del small  # the graph stays for the mesh_train phase
     _, cli_launches = phase_cli(info["nvidia_smi"])
     torch.cuda.empty_cache()
     attn = phase_attention(device, timer)
@@ -4131,6 +4639,11 @@ def main() -> int:
     gc.collect()  # the training state, before the mesh paths' weights
     torch.cuda.empty_cache()
     mesh, bag_site = phase_mesh_models(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    perm = np.asarray(dist_out["mapper"]["site_permutation"])
+    _, train_mesh, halo_site = phase_mesh_train(device, graph, perm, args.seed, info["nvidia_smi"], timer)
+    del graph
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -4146,7 +4659,10 @@ def main() -> int:
         "launches_per_reduce": kern["launches_per_reduce"], "entry": "segment_spmm_launch (every bucket, one launch)",
         "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
         "launches_gnn": gnn_launches, "launches_train": train_launches["segment_spmm"],
-        "launches_distributed": dist_launches,
+        "launches_distributed": dist_launches, "launches_mesh_train": train_mesh["segment_spmm"],
+        "halo_transpose": {"shape": f"the transposed reduce of the halo GIN's backward on amazon over {DIST_ENGINES} "
+                                    "stacked engines: the transpose of the extended rows' block-diagonal ELL, weights "
+                                    "1, D=64, f32", **halo_site},
         "distributed": {
             "pagerank_partials": {"shape": f"{DIST_ENGINES} stacked engines' PageRank partials on amazon (powerlaw "
                                            "partition): one block-diagonal ELL, PageRank weights, D=1, f32",
@@ -4183,6 +4699,7 @@ def main() -> int:
         "launches_moe_train_qwen": moe_train_launches["flash_attention_qwen"],
         "launches_mesh_models": mesh["olmoe"]["flash_attention_launches_a_drain"]["ep"],
         "launches_mesh_models_qwen": mesh["qwen"]["flash_attention_launches_a_drain"]["ep"],
+        "launches_mesh_train": train_mesh["flash_attention"], "launches_mesh_train_qwen": train_mesh["flash_attention_qwen"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
@@ -4200,6 +4717,8 @@ def main() -> int:
             "q", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "kernels_ms")},
         "launches_moe_train": moe_train_launches["flash_attention_bwd"],
         "launches_moe_train_qwen": moe_train_launches["flash_attention_bwd_qwen"],
+        "launches_mesh_train": train_mesh["flash_attention_bwd"],
+        "launches_mesh_train_qwen": train_mesh["flash_attention_bwd_qwen"],
         "moe_train_shape": {"shape": "olmoe-1b-7b training attention: q/k/v (8, 128, 16, 128) bf16, causal",
                             **{k: attn["backward"]["timed"]["moe_train"][k] for k in (
                                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
@@ -4217,7 +4736,7 @@ def main() -> int:
             "B", "L", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "launches_mesh_models": mesh["dcn"]["serve_bulk"]["embedding_bag_launches"]
         + mesh["dcn"]["train"]["psum_model"]["embedding_bag_launches"],
-        "psum_model": bag_site,
+        "psum_model": bag_site, "launches_mesh_train": train_mesh["embedding_bag"],
     }]}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

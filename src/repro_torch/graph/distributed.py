@@ -32,6 +32,21 @@ Both fold partials and per-engine scalars in engine order (`fold`, never a
 reduction whose order depends on the tensor's shape), so the two backends give
 the same bits.
 
+Training goes through the collectives.  On "stacked" autograd differentiates
+the swap and the fold; on "process_group" the raw collectives are
+`torch.autograd.Function`s: the exchange's transpose is the same exchange,
+and a gather's output is the same on every engine of the row (each holds the
+whole cotangent, as replicated work computes it on every process), so its
+transpose is the engine's own block of the cotangent; `psum`, a fold of the
+gather, passes the cotangent through to each engine's contribution.  Where a
+tensor that every engine holds alike (a weight, the token batch) enters
+per-engine work, the caller says so with `enter`: its backward sums the
+engines' cotangents over the axes it was replicated on, in engine order
+(Megatron's *f*; the transpose of JAX's `pvary`).  Nothing else sums a
+gradient over engines: work done alike on every process (dcn-v2's dense
+layers after the data gather, the transformer around EP) already leaves the
+whole gradient on each, and a sum there would count it once an engine.
+
 PageRank (a sum program whose process is the weighted product) reduces its
 partials through `kernels.segment_spmm`, one launch a step for all local
 engines: one ELL a run, block-diagonal over them, rows (engine, dst_key) and
@@ -166,7 +181,8 @@ class EngineMesh:
         """x (local engines…, S, …), S the axis's size: block j of each engine
         is for the engine at coordinate j along `axis` in its row.  Returns the
         same shape: block i is what the engine at coordinate i sent it.  On
-        "stacked", the swap of the axis with the block axis."""
+        "stacked", the swap of the axis with the block axis.  Its transpose is
+        itself."""
         a, n = self.axis_index(axis), len(self.axis_sizes)
         if self.backend == "stacked":
             return x.transpose(a, n).contiguous()
@@ -174,8 +190,7 @@ class EngineMesh:
         grank = torch.from_numpy(grank).to(x.device)
         lead = x.shape[:n]
         send = x.reshape(x.shape[n:]).index_select(0, torch.argsort(grank))  # block k goes to group rank k
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        recv = _GroupAllToAll.apply(send, group)
         return recv.index_select(0, grank).reshape(*lead, *recv.shape)  # block i arrived from grank[i]
 
     def all_gather(self, x: Tensor, axis: str | None = None) -> Tensor:
@@ -190,8 +205,7 @@ class EngineMesh:
             return x
         a = self.axis_index(axis)
         group, grank = self._groups[a]
-        parts = [torch.empty_like(x) for _ in range(len(grank))]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        parts = _GroupAllGather.apply(x.contiguous(), group)  # (group size, …) in group-rank order
         return torch.cat([parts[r] for r in grank], dim=a)
 
     def psum(self, x: Tensor, axis: str | None = None) -> Tensor:
@@ -205,6 +219,76 @@ class EngineMesh:
             return fold(full.reshape(-1, *full.shape[n:]), 0)
         a = self.axis_index(axis)
         return fold(self.all_gather(x, axis), a).unsqueeze(a)
+
+    def enter(self, x: Tensor, axes: str | tuple[str, ...] | None = None) -> Tensor:
+        """`x` (local engines…, …), the same on every engine along `axes`
+        (None: every axis) and held once there (size 1 on those local axes),
+        as per-engine work reads it: one copy a local engine along `axes` (on
+        "stacked" an expanded view; on "process_group" `x` itself).  The
+        forward moves nothing.  The backward sums each engine's cotangent
+        over `axes`, one axis at a time in the mesh's order and along each in
+        engine order (`fold` on "stacked", `psum` on "process_group"), so the
+        two backends give the same bits, and leaves the sum, the whole
+        gradient, on every engine (size 1 again)."""
+        names = self.axis_names if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+        dims = tuple(sorted(self.axis_index(name) for name in names))
+        if any(x.shape[a] != 1 for a in dims):
+            raise ValueError(f"enter: a tensor of shape {tuple(x.shape)} is not held once along {names}")
+        return _Enter.apply(x, self, dims)
+
+
+class _GroupAllToAll(torch.autograd.Function):
+    """`dist.all_to_all_single` over `group`: block k of `send` goes to group
+    rank k.  The exchange is its own transpose: the cotangent of the block
+    that came from rank k goes back to rank k."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GroupAllToAll.forward(ctx, g.contiguous(), ctx.group), None
+
+
+class _GroupAllGather(torch.autograd.Function):
+    """`dist.all_gather` over `group`: (group size, …), block k from group
+    rank k.  The result is the same on every rank of the group, and each
+    holds the whole cotangent of it, so the transpose is this rank's own
+    block (a sum over the ranks would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[dist.get_rank(ctx.group)], None
+
+
+class _Enter(torch.autograd.Function):
+    """`EngineMesh.enter`: identity forward (a view expanded over `dims` on
+    "stacked"), the engines' cotangents summed over `dims` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        if mesh.backend == "stacked":
+            return x.expand(*(mesh.axis_sizes[i] if i in dims else -1 for i in range(x.dim())))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        for a in ctx.dims:
+            g = fold(g, a).unsqueeze(a) if mesh.backend == "stacked" else mesh.psum(g, mesh.axis_names[a])
+        return g, None, None
 
 
 def _axis_groups(sizes: tuple[int, ...], perm: np.ndarray, rank: int) -> tuple:

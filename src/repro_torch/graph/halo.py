@@ -10,7 +10,12 @@ neighbour sum (the port of `repro.graph.halo`).
     (P, h_pair, d) buffer, bytes ∝ the partition's cut, not N·d·P.
 
 `build_halo_plan` is host numpy with static shapes, bit-equal to the
-reference's; `halo_extend` runs on the mesh's device.
+reference's; `halo_extend` runs on the mesh's device.  Its backward is the
+exchange's transpose (`EngineMesh.all_to_all` again) and the gather's: each
+sent row's cotangent added back into the row it was read from, one peer at a
+time in engine order (`_SendRows`), so a gradient has the same bits from run
+to run, where `index_select`'s own backward adds with atomics in an order
+that is not fixed.
 """
 from __future__ import annotations
 
@@ -143,9 +148,32 @@ def halo_extend(x_local: torch.Tensor, send_idx: torch.Tensor, mesh: EngineMesh)
     _, p, h_pair = send_idx.shape
     xz = torch.cat([x_local, x_local.new_zeros((L, 1, d))], dim=1).reshape(L * (n_local + 1), d)
     flat = send_idx + (torch.arange(L, device=send_idx.device) * (n_local + 1))[:, None, None]
-    send = xz.index_select(0, flat.reshape(-1)).view(L, p, h_pair, d)
-    recv = mesh.all_to_all(send)
+    recv = mesh.all_to_all(_SendRows.apply(xz, flat))
     return torch.cat([x_local, recv.reshape(L, p * h_pair, d)], dim=1)
+
+
+class _SendRows(torch.autograd.Function):
+    """rows (R, d) read at `flat` (L, P, h) → (L, P, h, d).  The backward adds
+    the cotangent of every (engine, peer) block into the rows it was read
+    from, one `index_add_` a peer, in peer order.  Within a block the rows
+    are distinct (`build_halo_plan` takes them from `np.unique`; only the
+    pad row, which reads zeros and gets no gradient, repeats), so no row is
+    written twice in one call and the sums are the same on every run."""
+
+    @staticmethod
+    def forward(ctx, rows, flat):
+        ctx.save_for_backward(flat)
+        ctx.num_rows = rows.shape[0]
+        return rows.index_select(0, flat.reshape(-1)).view(*flat.shape, rows.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        d = g.shape[-1]
+        out = g.new_zeros((ctx.num_rows, d))
+        for p in range(flat.shape[1]):
+            out.index_add_(0, flat[:, p].reshape(-1), g[:, p].reshape(-1, d))
+        return out, None
 
 
 def plan_sizes(plan: HaloPlan) -> dict[str, int]:

@@ -30,7 +30,9 @@ def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_se
     cache of `slots` × `max_seq` positions.  The weights are kept once, in
     `cfg.dtype` (`tfm.cast_params`).  `mesh`: the engine mesh (e.g.
     `graph.distributed.make_mesh((2, 8), ("data", "model"))`) that every
-    prefill and decode step hands the model, for MoE's impl="ep_shardmap"."""
+    prefill and decode step hands the model, for MoE's impl="ep_shardmap";
+    `params` are then as EP takes them, the expert stacks laid out on the
+    mesh (`tfm.shard_params(params, cfg, mesh)`)."""
     dev = resolve_device(device)
     params = tfm.cast_params(params, cfg, device=dev)
 

@@ -10,10 +10,16 @@ edges' `dst_slot`, columns their `src_slot` into the extended rows, stacked
 block-diagonally over the local engines, so one launch a layer serves them
 all.
 
-Forward and loss only: the reference differentiates this path only in its
-dry-run (tooling, ROADMAP.md Queue A 10); its backward, the exchange's
-transpose and the transposed ELL, is Queue A 9b.  With grad on and an input
-that requires it, the forward raises before any work.
+Training differentiates it, as `jax.grad` does the reference through its
+`shard_map`: the sum's gradient is the same kernel over the transposed ELL
+(`shard_batch(..., transpose=True)` builds it, once a plan), the exchange's
+is `halo_extend`'s backward, and the loss's fold over the mesh passes the
+cotangent to every engine.  The weights are the same on every engine: each
+engine reads them through `EngineMesh.enter`, so their gradients are the
+engines' partial gradients summed in engine order (one device: the same
+function; on "process_group" the whole gradient on every rank).
+`batch_specs_halo`, whose only consumer is the reference's dry-run, waits
+for that tooling (ROADMAP.md Queue A 10).
 """
 from __future__ import annotations
 
@@ -27,12 +33,9 @@ from repro_torch.graph.halo import HaloPlan, halo_extend
 from repro_torch.graph.structs import EllBlocks, HostGraph, build_ell
 from repro_torch.kernels.segment_spmm.ops import segment_spmm
 from repro_torch.models.gnn import GnnConfig, _mlp_apply
-from repro_torch.train.pytree import tree_leaves
+from repro_torch.train.pytree import tree_map
 
 __all__ = ["pack_batch", "halo_ell", "shard_batch", "gin_forward_halo", "gin_halo_loss_fn"]
-
-GRAD_REFUSAL = ("gin_forward_halo: forward only; the halo GIN's backward (the exchange's transpose and "
-                "the transposed ELL) is ROADMAP.md Queue A 9b")
 
 
 def pack_batch(plan: HaloPlan, x, labels, train_mask) -> dict:
@@ -55,23 +58,30 @@ def pack_batch(plan: HaloPlan, x, labels, train_mask) -> dict:
 
 
 def halo_ell(src_slot: np.ndarray, dst_slot: np.ndarray, n_local: int, ext_size: int,
-             device: torch.device) -> EllBlocks:
+             device: torch.device, *, transpose: bool = False) -> EllBlocks:
     """The ELL of the local neighbour sums of L engines, from their (L,
     e_local) `src_slot`/`dst_slot`: engine l's rows are l·ext_size +
     dst_slot, its columns l·ext_size + src_slot, no weights; square, of
     L·ext_size vertices, so the reduce reads the stacked extended rows as
-    they are.  Padded edges (dst_slot == n_local) are left out."""
+    they are.  Padded edges (dst_slot == n_local) are left out.
+    `transpose`: also its `transpose`, the ELL of the same edges the other
+    way (rows the extended source rows), which the sum's gradient reduces
+    over."""
     L = src_slot.shape[0]
     keep = dst_slot < n_local
     base = np.arange(L, dtype=np.int64)[:, None] * ext_size
     g = HostGraph(L * ext_size, (base + src_slot)[keep], (base + dst_slot)[keep])
-    return build_ell(g.reversed(), device=device)
+    ell = build_ell(g.reversed(), device=device)
+    if transpose:
+        ell.transpose = build_ell(g, device=device)
+    return ell
 
 
-def shard_batch(packed: dict, mesh: EngineMesh) -> dict:
+def shard_batch(packed: dict, mesh: EngineMesh, *, transpose: bool = False) -> dict:
     """`pack_batch`'s arrays → the mesh's local engines' rows as tensors on
     its device (`send_idx` as int64), with `ell` = their `halo_ell`, built
-    once a plan on the host."""
+    once a plan on the host (`transpose`: with its transpose, for
+    training)."""
     dev = resolve_device(mesh.device)
     P, n_local = packed["x"].shape[:2]
     if P != mesh.num_engines:
@@ -81,22 +91,28 @@ def shard_batch(packed: dict, mesh: EngineMesh) -> dict:
     out["send_idx"] = out["send_idx"].long()
     ext_size = n_local + P * packed["send_idx"].shape[2]
     out["ell"] = halo_ell(np.asarray(packed["src_slot"])[rows], np.asarray(packed["dst_slot"])[rows],
-                          n_local, ext_size, dev)
+                          n_local, ext_size, dev, transpose=transpose)
     return out
 
 
+def _per_engine(t: torch.Tensor, mesh: EngineMesh) -> torch.Tensor:
+    """A weight as every local engine reads it (`EngineMesh.enter`): (L, …)
+    for a matrix, (L, 1, …) for a vector or a scalar, so it broadcasts
+    against (L, rows, d)."""
+    lead = (1,) * max(1, 3 - t.dim())
+    return mesh.enter(t.reshape(*lead, *t.shape))
+
+
 def gin_forward_halo(params: dict, batch: dict, cfg: GnnConfig, mesh: EngineMesh) -> torch.Tensor:
-    """`batch` from `shard_batch`; returns (L, n_local, d_out) logits of the
-    local engines."""
+    """`batch` from `shard_batch` (with `transpose=True` to differentiate);
+    returns (L, n_local, d_out) logits of the local engines."""
     resolve_device(mesh.device)
     if cfg.kind != "gin":
         raise ValueError(f"gin_forward_halo runs GIN, not {cfg.kind!r}")
-    if torch.is_grad_enabled() and (batch["x"].requires_grad or any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(params))):
-        raise NotImplementedError(GRAD_REFUSAL)
     ell = batch.get("ell")
     if ell is None:
         raise ValueError("gin_forward_halo needs batch['ell']: build the batch with shard_batch(packed, mesh)")
+    params = tree_map(lambda t: _per_engine(t, mesh), params)
     h = batch["x"].to(cfg.dtype)
     L, n_local = h.shape[:2]
     ext_size = ell.num_nodes // L

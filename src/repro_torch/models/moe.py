@@ -35,32 +35,40 @@ expert blocks) is ported.
 
 `impl="ep_shardmap"` is expert parallelism over an engine mesh
 (`graph.distributed.EngineMesh`, passed as `moe_block(..., mesh=)`): the
-experts, padded to a multiple of the `m.ep_axis` size, are dealt to its
-engines in blocks of e_l; the tokens are laid over (data axes…, model) in
-row-major order, padded to a multiple of the engine count; each engine
-routes its own tokens and the reference's two-stage dispatch (`_moe_ep_body`)
-runs over the mesh's local-engine axes at once, not a loop over engines:
-stage 1 sorts each engine's slots by destination (stable), keeps `Cs` a
-destination and exchanges tokens and local expert ids with one
-`all_to_all` over the model axis; stage 2 sorts what arrived by local expert,
-keeps `Ce` an expert, runs the experts (`torch.bmm` over the local expert
-slab: every data row's tokens of an expert in one product, so the slab is
-read once and never copied), and both stages run back, the gate applied at
-the source and each token's k slots summed in slot order (no atomics).
-The padded experts are zero weights in the reference; here their output
-rows are zeros, which is what zero weights give, without a padded copy of
-the weights.  `layer_specs` is the reference's.  Differences: without a
-mesh, or on a mesh without the axis, EP raises where the reference runs the
-local path; on "process_group" it is forward only (the exchange has no
-autograd yet, ROADMAP.md Queue A 9b).  EP takes the whole expert stacks and
-the whole token batch, as the transformer around it holds them, and hands
-every process every token's output: each process reads only its engines'
-expert block and tokens, but on "process_group" every rank still holds every
-expert's weights, so EP there saves no memory yet (laying the stacks out with
-`models.sharding.shard_tensor`, as `recsys`'s `psum_model` does its tables,
-comes with EP training, ROADMAP.md Queue A 9b).  `moe_ep_loop_ref` is EP's
-plain version: the reference's per-device body for one engine at a time,
-the exchanges as indexing, no sort.
+experts, padded with zero experts to a multiple of the `m.ep_axis` size, are
+dealt to its engines in blocks of e_l, and the expert stacks arrive laid out
+that way, as the reference's `shard_map` `in_specs` take them (`ep_specs`:
+P(ep_axis, None, None) over the padded count; `shard_experts` lays them out
+with `models.sharding.shard_tensor`, `transformer.shard_params` the model's):
+(local engines…, e_l, D, F), one process holding its engines' experts only.
+Not `layer_specs`: for experts the axis does not divide (qwen2-moe's 60 on 16)
+it splits `d_ff_expert`, which EP's slab cannot use; it stays the reference's.
+The tokens are laid over (data axes…, model) in row-major order, padded to a
+multiple of the engine count; each engine routes its own tokens and the
+reference's two-stage dispatch (`_moe_ep_body`) runs over the mesh's
+local-engine axes at once, not a loop over engines: stage 1 sorts each
+engine's slots by destination (stable), keeps `Cs` a destination and
+exchanges tokens and local expert ids with one `all_to_all` over the model
+axis; stage 2 sorts what arrived by local expert, keeps `Ce` an expert, runs
+the experts (`torch.bmm` over the local expert slab: every data row's tokens
+of an expert in one product, so the slab is read once; in training one
+product a data row, so that each row's slab gradient stays apart), and both
+stages run back, the gate at the source and each token's k slots summed in
+slot order (no atomics).  A padded expert is zero weights, as in the
+reference, and gives zero rows.
+
+Training differentiates EP on both mesh backends.  The token batch and the
+router are the same on every engine, the expert slab on every engine of a
+model column; each enters the per-engine work through `EngineMesh.enter`, so
+their gradients are the engines' partial gradients summed in engine order
+(the data rows' for the slab), and the exchanges and the final gather carry
+their transposes.  Differences: without a mesh, or on a mesh without the
+axis, EP raises where the reference runs the local path; EP takes the whole
+token batch, as the transformer around it holds it, and hands every process
+every token's output (the all-gather the reference's `out_specs` leave to
+XLA).  `moe_ep_loop_ref` is EP's plain version: the reference's per-device
+body for one engine at a time on the whole expert stacks, the exchanges as
+indexing, no sort.
 """
 from __future__ import annotations
 
@@ -72,12 +80,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import P, MeshRules, axis_if_divisible
+from repro_torch.models.sharding import P, MeshRules, axis_if_divisible, shard_tensor, unshard_tensor
 
-__all__ = ["MoEConfig", "IMPLS", "layer_shapes", "layer_specs", "capacity", "ep_capacities", "moe_block",
-           "moe_loop_ref", "moe_ep_loop_ref", "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
+__all__ = ["MoEConfig", "IMPLS", "EXPERT_KEYS", "layer_shapes", "layer_specs", "ep_specs", "shard_experts",
+           "unshard_experts", "capacity", "ep_capacities", "moe_block", "moe_loop_ref", "moe_ep_loop_ref",
+           "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
 
 IMPLS = ("local", "ep_shardmap")
+EXPERT_KEYS = ("we_gate", "we_up", "we_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +151,40 @@ def layer_specs(m: MoEConfig, d_model: int, r: MeshRules, *, prefix: int = 0, me
     return specs
 
 
+def ep_specs(m: MoEConfig, *, prefix: int = 0) -> dict:
+    """The specs EP takes its expert stacks in: the padded experts split
+    over `m.ep_axis` (after `prefix` leading dims, e.g. the stacked layers),
+    the rest whole — the reference's `shard_map` `in_specs`."""
+    return {k: P(*([None] * prefix), m.ep_axis, None, None) for k in EXPERT_KEYS}
+
+
+def shard_experts(m: MoEConfig, lp: dict, mesh, *, prefix: int = 0) -> dict:
+    """`lp` with its whole expert stacks (`prefix` leading dims, then (E, ·,
+    ·)) padded with zero experts to a multiple of the EP axis and laid out on
+    `mesh` by `shard_tensor(·, ep_specs(m, prefix=prefix)[k], mesh)`:
+    (local engines…, prefix dims…, e_l, ·, ·), this process's experts only.
+    The other leaves are passed on as they are."""
+    if m.ep_axis not in mesh.shape:
+        raise ValueError(f"EP lays its experts out over {m.ep_axis!r}; the mesh has {mesh.axis_names}")
+    pad = m.padded_experts(mesh.shape[m.ep_axis]) - m.num_experts
+    out = dict(lp)
+    for k, spec in ep_specs(m, prefix=prefix).items():
+        w = lp[k]
+        if pad:
+            w = torch.cat([w, w.new_zeros((*w.shape[:prefix], pad, *w.shape[prefix + 1:]))], dim=prefix)
+        out[k] = shard_tensor(w, spec, mesh)
+    return out
+
+
+def unshard_experts(m: MoEConfig, lp: dict, mesh, *, prefix: int = 0) -> dict:
+    """The inverse of `shard_experts`: the whole stacks of the real experts
+    (on "process_group" gathered from every rank)."""
+    out = dict(lp)
+    for k, spec in ep_specs(m, prefix=prefix).items():
+        out[k] = unshard_tensor(lp[k], spec, mesh).narrow(prefix, 0, m.num_experts)
+    return out
+
+
 def capacity(m: MoEConfig, n: int) -> int:
     """Slots an expert keeps when `n` tokens are routed in one call."""
     return max(8, int(math.ceil(n * m.top_k / m.num_experts * m.capacity_factor)))
@@ -151,12 +195,16 @@ def capacity(m: MoEConfig, n: int) -> int:
 
 def _router(m: MoEConfig, lp: dict, x: torch.Tensor):
     """x (N, D) → (topk_probs (N,k) in x's type, topk_idx (N,k), full probs (N,E) float32)."""
-    logits = x.float() @ lp["router"].float()
+    return _route(m, x.float() @ lp["router"].float(), x.dtype)
+
+
+def _route(m: MoEConfig, logits: torch.Tensor, dtype: torch.dtype):
+    """float32 logits (…, E) → (topk_probs in `dtype`, topk_idx, full probs)."""
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, m.top_k, dim=-1)
     if m.norm_topk:
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-    return top_p.to(x.dtype), top_i, probs
+    return top_p.to(dtype), top_i, probs
 
 
 def load_balance_loss(probs: torch.Tensor, top_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -272,6 +320,31 @@ def _sort_rows(v: torch.Tensor, num_segments: int):
     return order, pos, counts
 
 
+class _EngineRowsTimes(torch.autograd.Function):
+    """x (L, n, D) @ w (L, D, E), where w is one weight entered once a local
+    engine (`EngineMesh.enter`: every copy the same).  The forward is one
+    product over all L·n rows with the first copy: the router's logits
+    have the bits of the whole batch through one product, as the local path
+    and `moe_ep_loop_ref` route (a batched product rounds otherwise, and a
+    near tie in top-k then picks another expert).  The backward keeps each
+    engine's weight gradient apart (one batched product), for `enter` to
+    sum in engine order."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        L, n, d = x.shape
+        return (x.reshape(L * n, d) @ w[0]).view(L, n, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        L, n, d = x.shape
+        gx = (g.reshape(L * n, -1) @ w[0].T).view(L, n, d) if ctx.needs_input_grad[0] else None
+        gw = torch.bmm(x.transpose(1, 2), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 @dataclasses.dataclass
 class EpRoute:
     """One EP routing (`moe_block.ep_log`): the capacities and, for each
@@ -285,13 +358,13 @@ class EpRoute:
     stage2: torch.Tensor
 
 
-def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab: tuple, e_l: int) -> torch.Tensor:
+def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slabs: list, e_l: int) -> torch.Tensor:
     """The reference's per-device body (`_moe_ep_local_body`) for every local
     engine at once.  x (G, M, n_l, D): the local engines' tokens, G over the
     data axes (flattened) and M over the model axis, in that order whatever
-    the mesh's axis order; slab (wg, wu, wd): the real experts among the
-    local engines' (M·e_l, ·, ·) expert block, its first rows.  Returns
-    (G, M, n_l, D)."""
+    the mesh's axis order; router (G·M, D, E): each engine's copy; slabs: for
+    each of the G data rows, (wg, wu, wd) of its M·e_l experts, padded ones
+    included (every row's the same weights).  Returns (G, M, n_l, D)."""
     G, M, n_l, d = x.shape
     L, k, ep = G * M, m.top_k, mesh.shape[m.ep_axis]
     dev = x.device
@@ -306,8 +379,8 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
         return t.reshape(L * ep * Cs, *rest)
 
     xf = x.reshape(L * n_l, d)
-    top_p, top_i, _ = _router(m, {"router": router}, xf)
-    top_p, top_i = top_p.view(L, n_l * k), top_i.view(L, n_l * k)
+    top_p, top_i, _ = _route(m, _EngineRowsTimes.apply(x.reshape(L, n_l, d).float(), router.float()), x.dtype)
+    top_p, top_i = top_p.reshape(L, n_l * k), top_i.reshape(L, n_l * k)
     rows = torch.arange(L, device=dev)[:, None]
 
     # stage 1: route each engine's slots to the engines that own their experts
@@ -327,8 +400,7 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
     send_g.index_copy_(0, into, top_p.gather(1, order).view(-1))
     recv_x, recv_e = exchange(send_x[:-1]), exchange(send_e[:-1]).view(L, S)
 
-    # stage 2: group what arrived by local expert, into every local expert's rows
-    # (experts, G, Ce) — an expert's tokens from every data row together
+    # stage 2: group what arrived by local expert, into every local expert's rows (experts, G, Ce)
     order2, pos2, counts2 = _sort_rows(recv_e, e_l + 1)
     e2 = recv_e.gather(1, order2)
     keep2 = (pos2 < Ce) & (e2 < e_l)
@@ -339,13 +411,14 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
     buf = torch.zeros((n_buf + 1, d), dtype=x.dtype, device=dev)
     buf.index_copy_(0, dest2, recv_x[arrived])
     del recv_x
-    buf = buf[:-1].view(M * e_l, G * Ce, d)
-    real = slab[0].shape[0]
-    y = _expert_ffn(*slab, buf[:real])
+    buf = buf[:-1].view(M * e_l, G, Ce, d)
+    if torch.is_grad_enabled() and any(w.requires_grad for w in slabs[0]):
+        # one product a data row: each row's slab gradient apart, for `enter` to fold
+        y = torch.stack([_expert_ffn(*slab, buf[:, g]) for g, slab in enumerate(slabs)], 1)
+    else:  # every data row's tokens of an expert in one product: the slab read once
+        y = _expert_ffn(*slabs[0], buf.view(M * e_l, G * Ce, d))
+    y = y.reshape(n_buf, d)
     del buf
-    if real < M * e_l:  # a padded expert's rows: what zero weights give
-        y = torch.cat([y, y.new_zeros((M * e_l - real, *y.shape[1:]))])
-    y = y.view(n_buf, d)
     y_recv = torch.empty((L * S, d), dtype=x.dtype, device=dev)
     y_recv.index_copy_(0, arrived, y[dest2.clamp_max(n_buf - 1)] * keep2.view(-1, 1).to(x.dtype))
 
@@ -361,37 +434,54 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
 
 def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
     """Expert parallelism over `mesh`'s `m.ep_axis`.  x: (N, D), the whole
-    token batch on every process; returns (N, D), gathered from every engine."""
+    token batch on every process; `lp`'s expert stacks laid out on the mesh
+    (`shard_experts`).  Returns (N, D), gathered from every engine."""
     if mesh is None or m.ep_axis not in mesh.shape:
         raise ValueError(f"MoE impl='ep_shardmap' needs a mesh with the {m.ep_axis!r} axis (moe_block(..., "
                          f"mesh=)); got {None if mesh is None else mesh.axis_names}")
-    if mesh.backend != "stacked" and torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in lp.values())):
-        raise NotImplementedError("EP on the process_group backend is forward only: its exchange has no "
-                                  "autograd (ROADMAP.md Queue A 9b)")
     ep = mesh.shape[m.ep_axis]
     e_l = m.padded_experts(ep) // ep
-    names = [a for a in mesh.axis_names if a != m.ep_axis]
-    dp = [mesh.shape[a] for a in names]
+    n_axes, a = len(mesh.axis_names), mesh.axis_index(m.ep_axis)
+    want = tuple(mesh.local_shape[i] if i == a else 1 for i in range(n_axes)) + (e_l,)
+    got = tuple(lp["we_gate"].shape[:n_axes + 1])
+    if got != want or lp["we_gate"].dim() != n_axes + 3:
+        raise ValueError(f"EP takes the expert stacks laid out on the mesh (moe.shard_experts, "
+                         f"transformer.shard_params): leading dims {want}, got {tuple(lp['we_gate'].shape)}")
+    names = [name for name in mesh.axis_names if name != m.ep_axis]
+    # the local engines in (data axes…, model) order, the body's
+    to_body = [mesh.axis_index(name) for name in names] + [a]
     n_dev = mesh.num_engines
     n_tok, d = x.shape
     n_pad = -(-n_tok // n_dev) * n_dev  # decode batches can be smaller than the engine count
     if n_pad != n_tok:
         x = torch.cat([x, x.new_zeros((n_pad - n_tok, d))])
     n_l = n_pad // n_dev
-    # the local engines' tokens, in (data axes…, model) order
-    where = dict(zip(mesh.axis_names, mesh.local_slices()))
-    xl = x.view(*dp, ep, n_l, d)[tuple(where[a] for a in names) + (where[m.ep_axis],)]
-    G, M = int(np.prod(xl.shape[:len(dp)])), xl.shape[len(dp)]
-    # the local engines' expert block: experts [j0·e_l, (j0 + M)·e_l), the real ones its first rows
-    j0 = int(mesh.local_coords(m.ep_axis)[0])
-    lo = min(j0 * e_l, m.num_experts)
-    hi = min((j0 + M) * e_l, m.num_experts)
-    slab = tuple(lp[n][lo:hi] for n in ("we_gate", "we_up", "we_down"))
-    out = _moe_ep_body(m, mesh, xl.reshape(G, M, n_l, d), lp["router"], slab, e_l)
+    dp_local = [mesh.local_shape[i] for i in to_body[:-1]]
+    G, M = int(np.prod(dp_local)), mesh.local_shape[a]
+    L = G * M
+
+    def per_engine(t: torch.Tensor, axes=None) -> torch.Tensor:
+        """A tensor held once along `axes` (None: every axis) as the local
+        engines read it, their axes in body order."""
+        t = mesh.enter(t, axes)
+        return t.permute(*to_body, *range(n_axes, t.dim()))
+
+    # each local engine's own tokens (block (g, i) of the batch laid over (data axes…, model)) and router:
+    # the local engines' blocks are consecutive in body order (all of them on "stacked", one a process)
+    lead = (1,) * n_axes
+    first = [int(mesh.local_coords(name)[0]) for name in names] + [int(mesh.local_coords(m.ep_axis)[0])]
+    b0 = int(np.ravel_multi_index(first, [mesh.shape[name] for name in names] + [ep]))
+    xs = per_engine(x.view(*lead, n_pad, d)).reshape(L, n_dev, n_l, d)
+    engines = torch.arange(L, device=x.device)
+    xl = xs[engines, engines + b0]
+    router = per_engine(lp["router"].view(*lead, *lp["router"].shape)).reshape(L, *lp["router"].shape)
+    # each data row's copy of the local engines' expert slab (M·e_l, ·, ·)
+    slabs = zip(*(per_engine(lp[key], names).reshape(G, M * e_l, *lp[key].shape[n_axes + 1:]).unbind(0)
+                  for key in EXPERT_KEYS))
+    out = _moe_ep_body(m, mesh, xl.view(G, M, n_l, d), router, list(slabs), e_l)
     # every engine's tokens back on every process, in token order
-    full = out.view(*xl.shape[:len(dp)], M, n_l, d).movedim(len(dp), mesh.axis_index(m.ep_axis))
-    full = mesh.all_gather(full).movedim(mesh.axis_index(m.ep_axis), len(dp))
+    full = out.view(*dp_local, M, n_l, d).movedim(len(dp_local), a)
+    full = mesh.all_gather(full).movedim(a, len(dp_local))
     return full.reshape(n_pad, d)[:n_tok]
 
 

@@ -16,12 +16,17 @@ as one contiguous slab, `sharding.shard_tensor(tables, param_specs(cfg,
 mesh)["tables"], mesh)`, (1, …, ep, T, V/ep, D) on "stacked"; the ids are
 split over the data axes where the batch divides; each model shard gathers
 the rows it owns and the partial bags are folded over "model" in engine
-order.  The gathers of every local shard are ONE `embedding_bag` launch over
-the slab seen as (ep·T, V/ep, D), each shard's ids shifted by its first
-row: an id outside the shard falls outside [0, V/ep), which the kernel adds
-as exactly 0 (the reference's masked local gather).  The table gradient is
-the bag's own backward into the local slab; it never crosses the model
-axis.  Without a mesh it raises (the reference falls back to the gather).
+order.  The gathers of every local shard are one `embedding_bag` launch a
+local data row over the slab seen as (ep·T, V/ep, D), each shard's ids
+shifted by its first row: an id outside the shard falls outside [0, V/ep),
+which the kernel adds as exactly 0 (the reference's masked local gather).
+The table gradient is the bag's own backward into the local slab; it never
+crosses the model axis.  Where the batch is split over the data axes, every
+data row reads the same slab: it enters the lookup through
+`EngineMesh.enter`, so its gradient is the data rows' partial gradients
+summed in engine order (hence one launch a data row: each row's own
+backward).  Without a mesh it raises (the reference falls back to the
+gather).
 
 Shapes (dcn-v2): n_dense=13, n_sparse=26, embed_dim=16, 1,000,000 rows a
 table, 3 cross layers, MLP 1024-1024-512.  `retrieval_scores` scores queries
@@ -156,9 +161,6 @@ def _lookup_psum_model(cfg: DcnConfig, tables: torch.Tensor, ids: torch.Tensor, 
     if mesh is None or "model" not in mesh.shape:
         raise ValueError("lookup_impl='psum_model' needs a mesh with the 'model' axis (forward(..., mesh=)); "
                          f"got {None if mesh is None else mesh.axis_names}")
-    if mesh.backend != "stacked" and torch.is_grad_enabled() and tables.requires_grad:
-        raise NotImplementedError("psum_model on the process_group backend is forward only: its fold over "
-                                  "the model axis has no autograd (ROADMAP.md Queue A 9b)")
     ep = mesh.shape["model"]
     t, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
     if v % ep:
@@ -172,27 +174,33 @@ def _lookup_psum_model(cfg: DcnConfig, tables: torch.Tensor, ids: torch.Tensor, 
                          f"param_specs(cfg, mesh)['tables'], mesh)): shape {want}, got {tuple(tables.shape)}")
     dp = [name for name in mesh.axis_names if name != "model"]
     b = ids.shape[0]
-    if b % int(np.prod([mesh.shape[name] for name in dp])) == 0:
-        # this process's rows of the batch: (local data engines…, B_l, T, L)
+    split = b % int(np.prod([mesh.shape[name] for name in dp])) == 0
+    if split:
+        # this process's rows of the batch: (local data engines…, B_l, T, L); each reads the slab
         where = dict(zip(mesh.axis_names, mesh.local_slices()))
         lead, pick = [mesh.shape[name] for name in dp], tuple(where[name] for name in dp)
+        tables = mesh.enter(tables, dp)
     else:  # the whole batch on every data engine, held once (data axes of size 1)
         lead, pick = [1] * len(dp), ()
     ids = ids.reshape(*lead, -1, *ids.shape[1:])[pick]
     if weights is not None:
         weights = weights.reshape(*lead, -1, *weights.shape[1:])[pick]
     lead, bl, L = ids.shape[:len(dp)], ids.shape[len(dp)], ids.shape[-1]
+    rows = int(np.prod(lead))
     j0 = int(mesh.local_coords("model")[0])  # the local shards are model engines j0, j0 + 1, …
     lo = (torch.arange(m_l, dtype=ids.dtype, device=ids.device) + j0) * v_l
-    shifted = (ids.reshape(-1, 1, t, L) - lo.view(1, m_l, 1, 1)).reshape(-1, m_l * t, L)
+    shifted = (ids.reshape(-1, 1, t, L) - lo.view(1, m_l, 1, 1)).reshape(rows, bl, m_l * t, L).to(torch.int32)
     if weights is not None:
-        weights = weights.reshape(-1, 1, t, L).expand(-1, m_l, t, L).reshape(-1, m_l * t, L)
-    part = embedding_bag(tables.reshape(m_l * t, v_l, d), shifted.to(torch.int32), weights,
-                         impl=cfg.bag_impl)  # (local rows, m_l·T, D): every local shard's partial bags
+        weights = weights.reshape(-1, 1, t, L).expand(-1, m_l, t, L).reshape(rows, bl, m_l * t, L)
+    # each local data row's copy of the slab, (m_l·T, V/ep, D), the local engines in (data…, model) order
+    slabs = tables.movedim(a, n - 1).reshape(-1, m_l * t, v_l, d).unbind(0)
+    part = torch.cat([embedding_bag(slab, shifted[r], None if weights is None else weights[r], impl=cfg.bag_impl)
+                      for r, slab in enumerate(slabs)])  # (local rows, m_l·T, D): every local shard's partial bags
     part = part.view(*lead, bl, m_l, t, d).movedim(len(dp) + 1, len(dp)).movedim(len(dp), a)
     out = mesh.psum(part, "model")  # folded in engine order; a model axis of size 1
-    for name in dp:
-        out = mesh.all_gather(out, name)  # every data row's bags, on every process
+    if split:
+        for name in dp:
+            out = mesh.all_gather(out, name)  # every data row's bags, on every process
     return out.reshape(-1, t, d)
 
 

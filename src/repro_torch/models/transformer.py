@@ -15,9 +15,12 @@ What changes:
     attention forward kernel runs twice a layer in a training step (an MoE
     layer routes twice too, and logs its routing once:
     `moe.checkpoint_contexts`).  There is no ambient mesh: `forward`,
-    `prefill` and the decode steps take `mesh=` and hand it to the MoE
-    block (impl="ep_shardmap" runs over it); the rest of the model runs
-    whole on every process and ignores it.
+    `loss_fn`, `prefill` and the decode steps take `mesh=` and hand it to
+    the MoE block (impl="ep_shardmap" runs over it); the rest of the model
+    runs whole on every process and ignores it.  For EP the expert stacks
+    are laid out on the mesh (`shard_params`: (local engines…, L, e_l, ·,
+    ·)); their layer axis follows that prefix, and the split and the
+    recompute carry it along.
   * Attention of prefill and forward goes through `ops.flash_attention`
     (the CUDA kernel for a CUDA tensor; with grad on, through its autograd
     Function, whose backward is the kernel `csrc/flash_attention_bwd.cu`).
@@ -59,8 +62,9 @@ from repro_torch.models.layers import (
     softmax_cross_entropy,
 )
 
-__all__ = ["TransformerConfig", "layer_shapes", "init_params", "cast_params", "forward", "loss_fn",
-           "init_kv_cache", "decode_step", "decode_step_batched_pos", "prefill"]
+__all__ = ["TransformerConfig", "layer_shapes", "init_params", "cast_params", "shard_params", "unshard_params",
+           "sharded_specs", "forward", "loss_fn", "init_kv_cache", "decode_step", "decode_step_batched_pos",
+           "prefill"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +172,42 @@ def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | 
     }
 
 
+def _ep(cfg: TransformerConfig) -> bool:
+    return cfg.moe is not None and cfg.moe.impl == "ep_shardmap"
+
+
+def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """The tree as EP on `mesh` takes it: the layer-stacked expert stacks
+    laid out by `moe.shard_experts` (this process's experts only), every
+    other leaf whole and shared, not copied.  Without EP, `params`.  A
+    laid-out stack keeps its shape, (local engines…, L, e_l, ·, ·), with the
+    layers outermost in memory: one layer's slab is then contiguous over the
+    local engines, as EP reads it, and not copied every layer."""
+    if not _ep(cfg):
+        return params
+    layers = moe_lib.shard_experts(cfg.moe, params["layers"], mesh, prefix=1)
+    n = len(mesh.axis_names)
+    for k in moe_lib.EXPERT_KEYS:
+        layers[k] = layers[k].movedim(n, 0).contiguous().movedim(0, n)
+    return dict(params, layers=layers)
+
+
+def unshard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """The inverse of `shard_params` (a gradient tree too): whole stacks."""
+    if not _ep(cfg):
+        return params
+    return dict(params, layers=moe_lib.unshard_experts(cfg.moe, params["layers"], mesh, prefix=1))
+
+
+def sharded_specs(cfg: TransformerConfig) -> dict:
+    """{leaf path: spec} of the leaves `shard_params` lays out (the
+    optimizer's global norm adds their squares over the engines that split
+    them)."""
+    if not _ep(cfg):
+        return {}
+    return {("layers", k): spec for k, spec in moe_lib.ep_specs(cfg.moe, prefix=1).items()}
+
+
 # ------------------------------ forward -----------------------------------
 
 
@@ -220,13 +260,19 @@ def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None, mesh=N
     return x + _ffn_block(cfg, lp, x, mesh)
 
 
+def _layer_axis(key: str, v: torch.Tensor) -> int:
+    """A stacked leaf's layer axis: 0, or after the local-engine prefix of an
+    expert stack laid out on a mesh (`shard_params`; 3 dims a layer)."""
+    return v.dim() - 4 if key in moe_lib.EXPERT_KEYS else 0
+
+
 def _layer(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+    return {k: v.select(_layer_axis(k, v), i) for k, v in params["layers"].items()}
 
 
 def _layers(params: dict, n: int) -> list[dict]:
     """Every layer's weights, each stacked leaf split once (`torch.unbind`)."""
-    split = {k: torch.unbind(v, 0) for k, v in params["layers"].items()}
+    split = {k: torch.unbind(v, _layer_axis(k, v)) for k, v in params["layers"].items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
@@ -257,8 +303,8 @@ def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch
     return _head(params, x, cfg)
 
 
-def loss_fn(params: dict, batch: dict, cfg: TransformerConfig) -> torch.Tensor:
-    logits = forward(params, batch["tokens"], cfg)
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
+    logits = forward(params, batch["tokens"], cfg, mesh=mesh)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     valid = batch.get("valid")
     valid = None if valid is None else torch.as_tensor(valid, device=logits.device)

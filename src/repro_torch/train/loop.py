@@ -6,6 +6,9 @@ with the loss in fp32, gradients by autograd (`torch.autograd.grad`, in
 place of `jax.value_and_grad`), optional int8 gradient compression (error
 feedback carried in the state), and the optimizer of `repro_torch.train.optim`,
 which updates the params in place.  There is no `jit`: PyTorch runs eagerly.
+On an engine mesh the step takes no mesh of its own: the loss function
+closes over it, and the optimizer takes it where the global norm needs it
+(`optim.adamw(..., mesh=, sharded=)`).
 
 `TrainLoop` is the driver a launcher runs: checkpoint/restore (atomic,
 async), preemption handling (SIGTERM → final checkpoint → exit 143), and the

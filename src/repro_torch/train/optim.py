@@ -10,6 +10,14 @@ from the reference: `lr_fn(step)` is taken before the increment (so
 `cosine_schedule(lr, 10, N)` gives lr 0 at step 0), the global norm is taken
 over every leaf, b2 = 0.95, weight decay 0.1 on every parameter.
 
+On an engine mesh (`adamw(..., mesh=, sharded=)`) the norm is the one the
+reference's `jit` takes over global arrays: a leaf laid out on the mesh
+(`sharded`: its path and spec) adds the squares of each engine block it is
+split into, each block once, and a leaf held whole counts once, since every
+process holds the same one.  The blocks' norms are taken one block at a
+time and put together in engine order (gathered over the split axes on
+"process_group"), so both mesh backends scale by the same bits.
+
 `int8_compress`: symmetric per-tensor int8 quantisation with error feedback
 (what the all-reduce of a data-parallel step would carry).
 """
@@ -21,7 +29,7 @@ import typing
 
 import torch
 
-from repro_torch.train.pytree import tree_leaves, tree_map
+from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_map
 
 __all__ = [
     "Optimizer",
@@ -59,15 +67,34 @@ def linear_warmup(base_lr: float, warmup: int):
     return lambda step: base_lr * min(float(step) + 1, warmup) / warmup
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.Tensor]:
+def _leaf_norm(g: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """‖g‖ of a whole leaf; of a leaf laid out on `mesh` by `spec`, the norm
+    of its blocks' norms over the engines that split it, in engine order."""
+    if spec is None:
+        return torch.linalg.vector_norm(g.float())
+    n = len(mesh.axis_names)
+    split = {a for part in spec if part is not None for a in ((part,) if isinstance(part, str) else part)}
+    blocks = torch.stack([torch.linalg.vector_norm(b.float()) for b in g.reshape(*g.shape[:n], -1).flatten(0, n - 1)])
+    blocks = blocks.view(g.shape[:n])
+    for axis in mesh.axis_names:
+        if axis in split:
+            blocks = mesh.all_gather(blocks, axis)
+    return torch.linalg.vector_norm(blocks.reshape(-1))
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float, *, mesh=None,
+                        sharded: dict | None = None) -> tuple[PyTree, torch.Tensor]:
     """Scale every leaf by min(1, max_norm / ‖grads‖) — in place — and return
-    (grads, the global norm).  The norm stays on the device: no host sync."""
+    (grads, the global norm).  The norm stays on the device: no host sync.
+    `sharded`: {leaf path: spec} of the leaves laid out on `mesh` (the
+    module's docstring says how they count)."""
+    sharded = sharded or {}
     with torch.no_grad():
-        leaves = tree_leaves(grads)
-        norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in leaves])
+        leaves = tree_leaves_with_path(grads)
+        norms = torch.stack([_leaf_norm(g, mesh, sharded.get(path)) for path, g in leaves])
         gn = torch.linalg.vector_norm(norms)
         scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-        for g in leaves:
+        for _, g in leaves:
             if g.dtype == torch.float32:
                 g.mul_(scale)
             else:
@@ -84,7 +111,11 @@ def adamw(
     weight_decay: float = 0.1,
     max_grad_norm: float | None = 1.0,
     mu_dtype: torch.dtype = torch.float32,
+    mesh=None,
+    sharded: dict | None = None,
 ) -> Optimizer:
+    """AdamW; `mesh`, `sharded`: the engine mesh the params live on and
+    {leaf path: spec} of those laid out on it, for the global norm."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -96,7 +127,7 @@ def adamw(
     def update(grads, state, params, step):
         with torch.no_grad():
             if max_grad_norm is not None:
-                grads, _ = clip_by_global_norm(grads, max_grad_norm)
+                grads, _ = clip_by_global_norm(grads, max_grad_norm, mesh=mesh, sharded=sharded)
             stepf = float(step) + 1.0
             bc1 = 1.0 - b1**stepf
             bc2 = 1.0 - b2**stepf

@@ -1,6 +1,10 @@
 """The port's engine mesh over gloo on the CPU, for `tests/test_torch_distributed.py`,
-`tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`
-and `tests/test_torch_recsys_psum.py`: `run_gloo(job, tmp_path)` spawns one
+`tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`,
+`tests/test_torch_recsys_psum.py` and their training counterparts
+(`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`, the `*_train` jobs:
+every gradient and the params after one AdamW step, by leaf path; a rank
+holds the whole of a replicated leaf and its own block of a laid-out one,
+`engine_block`): `run_gloo(job, tmp_path)` spawns one
 process a rank (WORLD of them, `torch.multiprocessing`, start method "spawn"),
 joins them into a gloo group from a `file://` store under `tmp_path`, runs
 `job` on a "process_group" mesh whose engines sit on the ranks in
@@ -29,6 +33,38 @@ WORLD = 4
 PERMUTATION = np.array([2, 0, 3, 1])  # engine p runs on rank PERMUTATION[p]
 MESH_2D = ((2, 2), ("data", "model"))  # engine p = (p // 2, p % 2), row-major
 GLOO_TIMEOUT_S = 240
+TRAIN_LR = 1e-3  # the reference launcher's lr and clip, a constant schedule so the first step moves
+
+
+def _path(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def train_step_runs(loss_fn, params, mesh, sharded: dict) -> dict:
+    """`loss_fn(params)`'s gradients, then one `make_train_step` AdamW step
+    (lr TRAIN_LR, clip 1.0, the global norm over `sharded` on `mesh`) on a
+    copy of `params`: {"grad/<path>", "param/<path>" (updated), "loss"}."""
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.pytree import tree_leaves_with_path, tree_map
+
+    leaves = tree_leaves_with_path(params)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad(loss_fn(params), [t for _, t in leaves])
+    out = {f"grad/{_path(path)}": g.numpy() for (path, _), g in zip(leaves, grads)}
+    init, step = make_train_step(lambda p, _: loss_fn(p), adamw(TRAIN_LR, mesh=mesh, sharded=sharded))
+    state, metrics = step(init(tree_map(lambda t: t.detach().clone(), params)), None)
+    out.update({f"param/{_path(path)}": t.detach().numpy() for path, t in tree_leaves_with_path(state.params)})
+    out["loss"] = metrics["loss"].numpy()
+    return out
+
+
+def engine_block(x: np.ndarray, engine: int, shape: tuple) -> np.ndarray:
+    """Engine `engine`'s block of a tensor laid out over the stacked mesh of
+    `shape` (an axis of size 1 is replicated: every engine's)."""
+    coords = np.unravel_index(engine, shape)
+    return x[tuple(slice(c, c + 1) if n > 1 else slice(0, 1) for c, n in zip(coords, x.shape))]
 
 
 def engine_runs(mesh) -> dict:
@@ -49,13 +85,12 @@ def engine_runs(mesh) -> dict:
     return out
 
 
-def halo_runs(mesh) -> dict:
+def _halo_case(mesh, *, transpose: bool = False):
     """gin (3 × 16, d_in 8, 5 classes, weights from the port's seeded
-    generator) by halo exchange on rmat(120, 900, seed=4): the local
-    engines' logits, in engine order, and the loss."""
+    generator) and its batch on rmat(120, 900, seed=4), sharded on `mesh`."""
     from repro_torch.graph.halo import build_halo_plan
     from repro_torch.models import gnn
-    from repro_torch.models.gnn_dist import gin_forward_halo, gin_halo_loss_fn, pack_batch, shard_batch
+    from repro_torch.models.gnn_dist import pack_batch, shard_batch
 
     g = rmat(120, 900, seed=4)
     cfg = gnn.GnnConfig("gin", "gin", n_layers=3, d_hidden=16, d_in=8, d_out=5)
@@ -64,7 +99,15 @@ def halo_runs(mesh) -> dict:
     x = rng.standard_normal((120, 8)).astype(np.float32)
     labels = rng.integers(0, 5, 120)
     plan = build_halo_plan(g.src, g.dst, 120, mesh.num_engines)
-    batch = shard_batch(pack_batch(plan, x, labels, rng.random(120) < 0.5), mesh)
+    return cfg, params, shard_batch(pack_batch(plan, x, labels, rng.random(120) < 0.5), mesh, transpose=transpose)
+
+
+def halo_runs(mesh) -> dict:
+    """The halo GIN of `_halo_case`: the local engines' logits, in engine
+    order, and the loss."""
+    from repro_torch.models.gnn_dist import gin_forward_halo, gin_halo_loss_fn
+
+    cfg, params, batch = _halo_case(mesh)
     with torch.no_grad():
         logits = gin_forward_halo(params, batch, cfg, mesh)
         loss = gin_halo_loss_fn(params, batch, cfg, mesh)
@@ -113,11 +156,12 @@ def moe_ep_runs(mesh) -> dict:
     lp = {n: torch.from_numpy((rng.standard_normal(sh) / np.sqrt(sh[-2])).astype(np.float32))
           for n, sh in moe.layer_shapes(m, 32).items()}
     x = torch.from_numpy(rng.standard_normal((2, 24, 32)).astype(np.float32))
+    lp = moe.shard_experts(m, lp, mesh)
     out = {"block": moe.moe_block(m, lp, x, mesh=mesh).numpy(),
            "decode": moe.moe_block(m, lp, x.reshape(-1, 32)[:3].reshape(3, 1, 32), mesh=mesh).numpy()}
     cfg = get_arch("olmoe-1b-7b").smoke_config()
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
-    params = tfm.init_params(cfg, 0, device="cpu")
+    params = tfm.shard_params(tfm.init_params(cfg, 0, device="cpu"), cfg, mesh)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))
     with torch.no_grad():
         out["olmoe_forward"] = tfm.forward(params, toks, cfg, mesh=mesh).numpy()
@@ -151,9 +195,86 @@ def recsys_psum_runs(mesh) -> dict:
     return out
 
 
+def halo_train_runs(mesh) -> dict:
+    """One training step of `_halo_case`'s GIN: every weight is whole on
+    every engine."""
+    from repro_torch.models.gnn_dist import gin_halo_loss_fn
+
+    cfg, params, batch = _halo_case(mesh, transpose=True)
+    out = train_step_runs(lambda p: gin_halo_loss_fn(p, batch, cfg, mesh), params, mesh, {})
+    return out | {"engines": mesh.local_engines}
+
+
+def moe_ep_train_runs(mesh) -> dict:
+    """One training step of the smoke olmoe-1b-7b with EP (its expert stacks
+    laid out by `shard_params`, the recompute on), and the gradients of one
+    EP block of 5 experts (padded to 6) top-2 with a shared expert at
+    capacity_factor 1.25 (slots drop) with respect to its weights and its
+    tokens."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.pytree import tree_leaves_with_path
+
+    rng = np.random.default_rng(11)
+    cfg = get_arch("olmoe-1b-7b").smoke_config()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
+    params = tfm.shard_params(tfm.init_params(cfg, 0, device="cpu"), cfg, mesh)
+    toks = rng.integers(0, cfg.vocab, (4, 13))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    sharded = {path: spec for path, spec in tfm.sharded_specs(cfg).items()}
+    out = train_step_runs(lambda p: tfm.loss_fn(p, batch, cfg, mesh=mesh), params, mesh, sharded)
+
+    m = moe.MoEConfig(5, 2, 24, d_ff_shared=40, capacity_factor=1.25, impl="ep_shardmap")
+    lp = {n: torch.from_numpy((rng.standard_normal(sh) / np.sqrt(sh[-2])).astype(np.float32))
+          for n, sh in moe.layer_shapes(m, 32).items()}
+    lp = moe.shard_experts(m, lp, mesh)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 32)).astype(np.float32)).requires_grad_(True)
+    dy = torch.from_numpy(rng.standard_normal((2, 24, 32)).astype(np.float32))
+    leaves = tree_leaves_with_path(lp)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad((moe.moe_block(m, lp, x, mesh=mesh) * dy).sum(), [x] + [t for _, t in leaves])
+    out["block/grad/x"] = grads[0].numpy()
+    out.update({f"block/grad/{_path(path)}": g.numpy() for (path, _), g in zip(leaves, grads[1:])})
+    return out | {"engines": mesh.local_engines}
+
+
+def recsys_psum_train_runs(mesh) -> dict:
+    """One training step of dcn-v2's smoke model with lookup_impl="psum_model"
+    (its tables laid out over "model") on a batch of 8, split over the data
+    axis, and the gradients of the loss of a batch of 5, which is not: every
+    data row then looks the whole batch up."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.sharding import shard_tensor
+
+    cfg = dataclasses.replace(get_arch("dcn-v2").smoke_config(), lookup_impl="psum_model")
+    spec = rec.param_specs(cfg, mesh)["tables"]
+    params = rec.init_params(cfg, 0, device="cpu")
+    params["tables"] = shard_tensor(params["tables"], spec, mesh)
+    rng = np.random.default_rng(13)
+
+    def batch(b):
+        return {"dense": rng.standard_normal((b, cfg.n_dense)).astype(np.float32),
+                "sparse_ids": rng.integers(0, cfg.rows_per_table, (b, cfg.n_sparse)).astype(np.int32),
+                "labels": rng.integers(0, 2, b).astype(np.float32)}
+
+    split, whole = batch(8), batch(5)
+    out = train_step_runs(lambda p: rec.loss_fn(p, split, cfg, mesh=mesh), params, mesh, {("tables",): spec})
+    unsplit = train_step_runs(lambda p: rec.loss_fn(p, whole, cfg, mesh=mesh), params, mesh, {("tables",): spec})
+    out.update({f"unsplit/{k}": v for k, v in unsplit.items() if not k.startswith("param/")})
+    return out | {"engines": mesh.local_engines}
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
-        "recsys_psum": recsys_psum_runs}
-JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum")
+        "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
+        "recsys_psum_train": recsys_psum_train_runs}
+JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):

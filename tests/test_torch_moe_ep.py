@@ -80,6 +80,11 @@ def _torch(tree):
     return {k: torch.from_numpy(v) for k, v in tree.items()}
 
 
+def _laid_out(m, lp, mesh):
+    """The layer's weights as EP takes them: the expert stacks laid out on `mesh`."""
+    return moe.shard_experts(m, _torch(lp), mesh)
+
+
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2), (2, 4)])
 @pytest.mark.parametrize("cf", [1.25, 4.0])
 @pytest.mark.parametrize("shared", [False, True])
@@ -89,7 +94,7 @@ def test_ep_matches_the_reference_per_device_body(shape, cf, shared, monkeypatch
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     moe.moe_block.ep_log = log = []
     try:
-        got = moe.moe_block(m, _torch(lp), torch.from_numpy(x), mesh=mesh).numpy()
+        got = moe.moe_block(m, _laid_out(m, lp, mesh), torch.from_numpy(x), mesh=mesh).numpy()
     finally:
         moe.moe_block.ep_log = None
     assert got.shape == x.shape and np.isfinite(got).all()
@@ -127,7 +132,7 @@ def test_the_plain_ep_loop_matches_the_reference_and_the_port(shape, cf, E, shar
     assert float(np.abs(plain.numpy() - want).max()) <= EP_TOL
     moe.moe_block.ep_log = log = []
     try:
-        got = moe.moe_block(m, _torch(lp), torch.from_numpy(x), mesh=mesh)
+        got = moe.moe_block(m, _laid_out(m, lp, mesh), torch.from_numpy(x), mesh=mesh)
     finally:
         moe.moe_block.ep_log = None
     (route,) = log
@@ -140,7 +145,8 @@ def test_the_plain_ep_loop_matches_the_reference_and_the_port(shape, cf, E, shar
 def test_a_decode_of_three_tokens_on_eight_engines(monkeypatch):
     jm, m, lp, x = _case(shared=True, tokens=(3, 1), seed=5)
     want = _reference_ep(jm, lp, x, (2, 4), monkeypatch)
-    got = moe.moe_block(m, _torch(lp), torch.from_numpy(x), mesh=make_mesh((2, 4), ("data", "model"), device="cpu"))
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    got = moe.moe_block(m, _laid_out(m, lp, mesh), torch.from_numpy(x), mesh=mesh)
     assert got.shape == (3, 1, D) and float(np.abs(got.numpy() - want).max()) <= EP_TOL
     assert float(np.abs(got.numpy() - _local(jm, lp, x)).max()) <= EP_TOL  # 3 tokens drop nothing
 
@@ -148,10 +154,12 @@ def test_a_decode_of_three_tokens_on_eight_engines(monkeypatch):
 def test_the_model_axis_may_come_first_and_a_1d_model_mesh_serves(monkeypatch):
     jm, m, lp, x = _case(E=8, k=2, tokens=(2, 16), seed=3)
     want = _reference_ep(jm, lp, x, (2, 4), monkeypatch)
-    got = moe.moe_block(m, _torch(lp), torch.from_numpy(x), mesh=make_mesh((4, 2), ("model", "data"), device="cpu"))
+    mesh = make_mesh((4, 2), ("model", "data"), device="cpu")
+    got = moe.moe_block(m, _laid_out(m, lp, mesh), torch.from_numpy(x), mesh=mesh)
     assert float(np.abs(got.numpy() - want).max()) <= EP_TOL
     want = _reference_ep(jm, lp, x, (1, 4), monkeypatch)
-    got = moe.moe_block(m, _torch(lp), torch.from_numpy(x), mesh=make_mesh((4,), ("model",), device="cpu"))
+    mesh = make_mesh((4,), ("model",), device="cpu")
+    got = moe.moe_block(m, _laid_out(m, lp, mesh), torch.from_numpy(x), mesh=mesh)
     assert float(np.abs(got.numpy() - want).max()) <= EP_TOL
 
 
@@ -168,14 +176,16 @@ def test_smoke_forward_with_ep_matches_the_reference_forward(arch):
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
     want = np.asarray(jtfm.forward(jp, jnp.asarray(toks), jcfg))
     for shape in ((2, 4), (1, 8)):
-        got = tfm.forward(p, torch.from_numpy(toks), cfg, mesh=make_mesh(shape, ("data", "model"), device="cpu"))
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        got = tfm.forward(tfm.shard_params(p, cfg, mesh), torch.from_numpy(toks), cfg, mesh=mesh)
         np.testing.assert_allclose(got.detach().numpy(), want, **MODEL_TOL)
     with torch.no_grad():  # prefill and a decode step take the mesh too
         mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+        sharded = tfm.shard_params(p, cfg, mesh)
         cache = tfm.init_kv_cache(cfg, 2, 20, dtype=torch.float32, device="cpu")
-        lg, _ = tfm.prefill(p, torch.from_numpy(toks), cache, cfg, mesh=mesh)
+        lg, _ = tfm.prefill(sharded, torch.from_numpy(toks), cache, cfg, mesh=mesh)
         np.testing.assert_allclose(lg.numpy(), want[:, -1], **MODEL_TOL)
-        step, _ = tfm.decode_step(p, cache, 16, torch.from_numpy(toks[:, :1]), cfg, mesh=mesh)
+        step, _ = tfm.decode_step(sharded, cache, 16, torch.from_numpy(toks[:, :1]), cfg, mesh=mesh)
         local = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="local"))
         cache2 = tfm.init_kv_cache(cfg, 2, 20, dtype=torch.float32, device="cpu")
         tfm.prefill(p, torch.from_numpy(toks), cache2, local)

@@ -10,7 +10,7 @@ multi-hot bags (the same products summed in another order: a shard's bag,
 then the fold over "model"); on meshes (2, 4), (1, 4), (2, 2) and (4, 2)
 with batches that divide the data axis and batches that do not.  The loss
 and every gradient, the tables' unsharded by `unshard_tensor`, against
-`jax.grad` of the reference's `loss_fn`; one bag launch a lookup; the
+`jax.grad` of the reference's `loss_fn`; one bag launch a data row a lookup; the
 `ValueError` on rows that do not divide the model axis; the refusal without
 a mesh; and a gloo run of 4 ranks on a 2 × 2 mesh bit-equal to stacked."""
 import dataclasses
@@ -85,8 +85,10 @@ def test_multi_hot_is_within_1e6_of_the_reference_gather(shape, weighted):
 
 
 def test_one_bag_call_a_lookup_over_the_whole_slab(monkeypatch):
-    """The lookup calls the bag once, on the slab seen as (ep·T, V/ep, D)
-    with every shard's ids shifted by its first row."""
+    """The lookup calls the bag once for each data row the process holds (the
+    slab enters each row's lookup, so each row's gradient is its own), every
+    call on the whole slab seen as (ep·T, V/ep, D) with every shard's ids
+    shifted by its first row: on (2, 4) two calls of 4 rows."""
     _, cfg = _cfgs()
     mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
     calls = []
@@ -99,7 +101,7 @@ def test_one_bag_call_a_lookup_over_the_whole_slab(monkeypatch):
     tables = np.random.default_rng(2).standard_normal((3, 64, 16)).astype(np.float32)
     ids, _ = _ids(cfg, 8, seed=2)
     rec.embedding_lookup(cfg, _slab(cfg, tables, mesh), torch.from_numpy(ids), mesh=mesh)
-    assert calls == [((4 * 3, 16, 16), (8, 4 * 3, 1), torch.int32, None)]
+    assert calls == [((4 * 3, 16, 16), (4, 4 * 3, 1), torch.int32, None)] * 2
 
 
 @pytest.mark.parametrize("which", ["smoke", "multi_hot4"])
