@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten paths, each driven with its kernels' launch counts set to 0 just
+Eleven paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -107,7 +107,17 @@ before and read just after (the paper pipeline once more through its CLI):
   (5 `train_batch` steps) over NCCL at world size 1; its kernels are
   `segment_spmm` (5 launches a halo GIN forward, 4 backward over the
   transposed halo ELL), `flash_attention` and `flash_attention_bwd` (every
-  EP training step) and `embedding_bag` (every `psum_model` step).
+  EP training step) and `embedding_bag` (every `psum_model` step);
+* Megatron TP and FSDP dense training (`models.dense_mesh`): llama3.2-3b at
+  its published width and depth trained on ("data", "model") = (2, 8)
+  under `MeshRules(strategy="tp_sp")` and `"fsdp"` (every leaf laid out by
+  `transformer.shard_params`) for 10 steps each at batch 16 × 128 and the
+  launcher's AdamW, beside the one-device step on the same weights and
+  batches; float32 gradients of llama3.2-3b and yi-34b (d 7168, 56/8 heads,
+  d_ff 20480, vocab 64,000) at full width over 2 layers; both strategies
+  over NCCL at world size 1; its kernels are `flash_attention` (twice a
+  layer a step, every engine's heads folded into one launch) and
+  `flash_attention_bwd` (once a layer a step).
 
 Phases, one JSON line each:
 
@@ -251,6 +261,17 @@ Phases, one JSON line each:
              layers; qwen2-moe's losses (its padded experts no slot); EP's
              gradients and step and `psum_model`'s 5 steps over NCCL at world
              size 1 bit-equal to stacked
+  mesh_dense   Megatron TP and FSDP on (2, 8): llama3.2-3b trained under
+             both strategies and on one device in turns (losses finite and
+             falling, the first within 5e-3 of one device's, step ms,
+             tokens/s, peak memory, 56 + 28 attention launches a step, the
+             bytes a step of the FSDP gathers, their reduce-scatters, the
+             model-axis psums and the embedding's); float32 gradients of
+             llama3.2-3b and yi-34b over 2 layers within 1e-4 of one
+             device's, two runs bit-equal, the AdamW step keeping every
+             layout; both strategies over NCCL at world size 1 bit-equal to
+             stacked; the attention kernels at the tp_sp per-engine shape
+             against their plain versions, bounds and SDPA
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -260,7 +281,9 @@ flash_attention, flash_attention_bwd, embedding_bag; the attention rows
 with their `moe_train` launches, the backward's with `moe_train_shape`,
 the forward's with `launches_mesh_models`, the bag's with its
 `psum_model` call site; every kernel with its `launches_mesh_train`, and
-ell_spmm with its `halo_transpose` call site),
+ell_spmm with its `halo_transpose` call site; the attention rows with their
+`launches_mesh_dense`, and `flash_attention.tp`: the forward and the
+backward at the tp_sp per-engine shape),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -4275,9 +4298,10 @@ def halo_train(device: torch.device, graph, perm: np.ndarray, seed: int, timer: 
 
 
 def lm_train_run(cfg, batches: list, device: torch.device, seed: int, mesh=None) -> dict:
-    """`len(batches)` training steps of `cfg` from the seed's weights (for EP
-    laid out on `mesh`) at the launcher's defaults: losses, step ms, peak
-    memory, each kernel's launches, and for EP its `EpRoute`s."""
+    """`len(batches)` training steps of `cfg` from the seed's weights (laid
+    out on `mesh` where given: EP's expert stacks, or every leaf of a dense
+    model) at the launcher's defaults: losses, step ms, peak memory, each
+    kernel's launches, and for EP its `EpRoute`s."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tfm
     from repro_torch.train.loop import make_train_step
@@ -4286,7 +4310,8 @@ def lm_train_run(cfg, batches: list, device: torch.device, seed: int, mesh=None)
     params = tfm.init_params(cfg, seed, device=device)
     if mesh is not None:
         params = tfm.shard_params(params, cfg, mesh)
-    opt = adamw(cosine_schedule(TRAIN_LR, 10, len(batches)), mesh=mesh, sharded=tfm.sharded_specs(cfg))
+    sharded = tfm.sharded_specs(cfg, mesh) if mesh is not None else {}
+    opt = adamw(cosine_schedule(TRAIN_LR, 10, len(batches)), mesh=mesh, sharded=sharded)
     init, step = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg, mesh=mesh), opt)
     state = init(params)
     del params
@@ -4492,7 +4517,7 @@ def nccl_world_one_train(device: torch.device, seed: int) -> dict:
             p = tfm.shard_params(tfm.init_params(lm, seed, device=device), lm, mesh)
             g = train_grads(p, tokens, lm, mesh)
             init, step = make_train_step(lambda q, b: tfm.loss_fn(q, b, lm, mesh=mesh),
-                                         adamw(TRAIN_LR, mesh=mesh, sharded=tfm.sharded_specs(lm)))
+                                         adamw(TRAIN_LR, mesh=mesh, sharded=tfm.sharded_specs(lm, mesh)))
             st, _ = step(init(p), tokens)
             ep = {"grads": [t.cpu() for t in g], "params": [t.cpu() for t in tree_leaves(st.params)]}
             del p, g, st
@@ -4570,6 +4595,326 @@ def phase_mesh_train(device: torch.device, graph, perm: np.ndarray, seed: int, s
     return out, counts, site
 
 
+# --------------------------------------------------------------------------- mesh_dense
+
+# (g) Megatron TP and FSDP dense training on MESH_SHAPE (`models.dense_mesh`): llama3.2-3b at its published
+# width and depth under both strategies beside the one-device step, in turns (no two training states, ~58 GB
+# each, alive at once); float32 gradients of llama3.2-3b and yi-34b over DENSE_F32_LAYERS layers against one
+# device's; NCCL at world size 1; the attention kernels at tp_sp's per-engine shape
+DENSE_ARCH, DENSE_WIDE_ARCH = "llama3.2-3b", "yi-34b"
+DENSE_BATCH, DENSE_STEPS = 16, 10  # 16 rows of the launcher's seq: fsdp's 16-way batch split gives each engine one
+DENSE_TURNS = ("one_device", "tp_sp", "fsdp", "one_device")
+DENSE_LOSS_RTOL = 5e-3  # the first bf16 loss against one device's: TP adds its 8 model engines' bf16 partials
+DENSE_PEAK_GB = 78.0  # above it the phase fails: take fewer layers
+DENSE_F32_LAYERS = 2
+DENSE_NCCL_LAYERS = 2
+
+
+def dense_step_bytes(cfg, mesh, batch: int, seq: int) -> dict:
+    """The bytes one training step's collectives move on `mesh` under
+    `cfg.rules`, each as the port runs it (an all-gather-based collective: an
+    engine receives its group's other blocks), summed over the engines:
+    the FSDP gathers of the float32 weights (each layer's twice, forward and
+    recompute; the embedding's and lm_head's once) and their transposes' folds
+    (once each), the model-axis psums of the row-parallel partials (twice a
+    layer, forward and recompute) and the folds of Megatron's f in the
+    backward (the attention's and the FFN's inputs, lm_head's), in
+    `cfg.dtype`, the embedding's float32 psum, and the vocab-parallel
+    cross-entropy's three (max, sum of exponentials, gold logit)."""
+    from repro_torch.models import transformer as tfm
+
+    r, specs, engines = cfg.rules, tfm.param_specs(cfg, mesh), mesh.num_engines
+    fsdp = set((r.fsdp,) if isinstance(r.fsdp, str) else r.fsdp)
+
+    def axes(entry):
+        return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+    def gathered(shape, spec) -> int:
+        """Bytes all engines receive in one gather of a float32 leaf."""
+        group = int(np.prod([mesh.shape[a] for e in spec for a in axes(e) if a in fsdp]))
+        split = int(np.prod([mesh.shape[a] for e in spec for a in axes(e)]))
+        return engines * (group - 1) * int(np.prod(shape)) * 4 // split
+
+    layer = sum(gathered(shape, specs["layers"][k][1:]) for k, shape in tfm.layer_shapes(cfg).items())
+    top = gathered((cfg.vocab, cfg.d_model), specs["embed"])
+    top += 0 if cfg.tie_embeddings else gathered((cfg.d_model, cfg.vocab), specs["lm_head"])
+    tp = mesh.shape[r.model] if r.model in mesh.shape else 1
+    rows = batch * seq // int(np.prod([mesh.shape[a] for a in r.batch if a in mesh.shape]))  # an engine's tokens
+    act = engines * (tp - 1) * rows * cfg.d_model  # one model-axis psum of (rows, d), in elements
+    item = torch.finfo(cfg.dtype).bits // 8
+    vocab_split = tuple(specs["embed"])[0] is not None
+    return {"fsdp_gathers": cfg.n_layers * 2 * layer + top, "reduce_scatters": cfg.n_layers * layer + top,
+            "model_psums": (cfg.n_layers * (2 * 2 + 2) + 1) * act * item,
+            "embedding_psum": act * 4 if vocab_split else 0,
+            "cross_entropy": engines * (tp - 1) * rows * 3 * 4 if vocab_split else 0,
+            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks"}
+
+
+def dense_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
+    """(g): llama3.2-3b at its published width and depth trained
+    DENSE_STEPS steps (batch DENSE_BATCH × 128) under tp_sp and fsdp on
+    `mesh` and on one device, on the same weights and batches, in turns
+    (DENSE_TURNS); losses finite and falling, the first within
+    DENSE_LOSS_RTOL of one device's; step ms, tokens/s, peak, attention
+    launches a step and the collectives' bytes.  Returns (the entry, the
+    tp_sp run's kernel launches)."""
+    import itertools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.models.sharding import MeshRules
+
+    cfg = get_arch(DENSE_ARCH).model_config()
+    L = cfg.n_layers
+    data = TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, DENSE_BATCH, seed=seed)
+    batches = [to_device(b, device) for b in itertools.islice(data, DENSE_STEPS)]
+    runs = {name: [] for name in DENSE_TURNS}
+    for name in DENSE_TURNS:
+        on_mesh = name != "one_device"
+        c = dataclasses.replace(cfg, rules=MeshRules(strategy=name)) if on_mesh else cfg
+        r = lm_train_run(c, batches, device, seed, mesh if on_mesh else None)
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0], f"llama {name}: {r['losses']}")
+        check(r["launches"]["flash_attention"] == 2 * L * DENSE_STEPS
+              and r["launches"]["flash_attention_bwd"] == L * DENSE_STEPS, f"llama {name}: launches {r['launches']}")
+        check(r["max_memory_allocated_gb"] <= DENSE_PEAK_GB,
+              f"llama {name}: peak {r['max_memory_allocated_gb']} GB at {L} layers: take fewer")
+        runs[name].append(r)
+    one = runs["one_device"][0]["losses"][0]
+    out = {"arch": DENSE_ARCH, "layers": L, "steps": DENSE_STEPS, "batch": DENSE_BATCH, "seq": LM_TRAIN_SEQ,
+           "mesh": dict(mesh.shape), "engines": mesh.num_engines, "turns": list(DENSE_TURNS),
+           "losses": {k: v[0]["losses"] for k, v in runs.items()},
+           "first_loss_rel_err_vs_one_device": {k: abs(runs[k][0]["losses"][0] - one) / one for k in ("tp_sp", "fsdp")},
+           "one_device_runs_losses_bit_equal": runs["one_device"][0]["losses"] == runs["one_device"][1]["losses"],
+           "step_ms": {k: float(np.mean([r["step_ms"] for r in v])) for k, v in runs.items()},
+           "tokens_per_s": {k: float(np.mean([r["tokens_per_s"] for r in v])) for k, v in runs.items()},
+           "max_memory_allocated_gb": {k: max(r["max_memory_allocated_gb"] for r in v) for k, v in runs.items()},
+           "runs": {k: [{f: r[f] for f in ("step_ms", "tokens_per_s", "max_memory_allocated_gb")} for r in v]
+                    for k, v in runs.items()},
+           "flash_attention_launches_a_step": {k: v[0]["launches"]["flash_attention"] / DENSE_STEPS
+                                               for k, v in runs.items()},
+           "flash_attention_bwd_launches_a_step": {k: v[0]["launches"]["flash_attention_bwd"] / DENSE_STEPS
+                                                   for k, v in runs.items()},
+           "bytes_a_step": {k: dense_step_bytes(dataclasses.replace(cfg, rules=MeshRules(strategy=k)), mesh,
+                                                DENSE_BATCH, LM_TRAIN_SEQ) for k in ("tp_sp", "fsdp")},
+           "tolerance": {"first_loss_rel": DENSE_LOSS_RTOL}, "peak_limit_gb": DENSE_PEAK_GB}
+    for k in ("tp_sp", "fsdp"):
+        out[f"{k}_vs_one_device_step_ms"] = out["step_ms"][k] / out["step_ms"]["one_device"]
+        check(out["first_loss_rel_err_vs_one_device"][k] <= DENSE_LOSS_RTOL,
+              f"llama {k}: first loss vs one device {out['first_loss_rel_err_vs_one_device'][k]}")
+    return out, dict(runs["tp_sp"][0]["launches"])
+
+
+def dense_grads(arch: str, device: torch.device, seed: int, mesh) -> dict:
+    """`arch` at its published width over DENSE_F32_LAYERS layers in float32:
+    one device's gradients of one batch (DENSE_BATCH × 128), then under each
+    strategy on `mesh` the laid-out tree's gradients twice (bit-equal), put
+    back whole and held within MESH_GRAD_REL of the largest entry of one
+    device's, and one AdamW step that leaves every leaf in its layout (in
+    place)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules, unshard_tensor
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_unflatten
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls in the float32 gradient check")
+    cfg = dataclasses.replace(get_arch(arch).model_config(), n_layers=DENSE_F32_LAYERS, dtype=torch.float32)
+    batch = to_device(next(iter(TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, DENSE_BATCH, seed=seed))), device)
+    params = tfm.init_params(cfg, seed, device=device)
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    names = ["/".join(map(str, p)) for p in paths]
+    torch.cuda.reset_peak_memory_stats()
+    want = train_grads(params, batch, cfg)
+    out = {"arch": arch, "layers": DENSE_F32_LAYERS, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "batch": DENSE_BATCH,
+           "seq": LM_TRAIN_SEQ, "params": sum(t.numel() for t in want), "tolerance_rel": MESH_GRAD_REL}
+    for strategy in ("tp_sp", "fsdp"):
+        c = dataclasses.replace(cfg, rules=MeshRules(strategy=strategy))
+        specs = tfm.sharded_specs(c, mesh)
+        laid = tfm.shard_params(params, c, mesh)
+        got = train_grads(laid, batch, c, mesh)
+        again = train_grads(laid, batch, c, mesh)
+        same = bit_equal(got, again)
+        del again
+        rel = {n: float((unshard_tensor(g, specs[p], mesh) - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+               for n, p, g, w in zip(names, paths, got, want)}
+        before = [(t.shape, t.data_ptr()) for t in tree_leaves(laid)]
+        opt = adamw(TRAIN_LR, mesh=mesh, sharded=specs)
+        opt.update(tree_unflatten(laid, got), opt.init(laid), laid, 0)
+        kept = [(t.shape, t.data_ptr()) for t in tree_leaves(laid)] == before
+        torch.cuda.synchronize()
+        out[strategy] = {"max_rel_err": max(rel.values()), "rel_err_by_leaf": rel, "grads_bit_equal_two_runs": same,
+                         "adamw_step_keeps_layout": kept,
+                         "laid_out": {n: list(t.shape) for n, t in zip(names, tree_leaves(laid))
+                                      if n in ("embed", "layers/wq", "layers/w_gate", "layers/w_down")}}
+        check(same, f"{arch} {strategy}: two gradients of one state differ")
+        check(kept, f"{arch} {strategy}: the AdamW step moved a leaf out of its layout")
+        check(max(rel.values()) <= MESH_GRAD_REL, f"{arch} {strategy}: float32 gradients vs one device: {rel}")
+        del laid, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_world_one_dense(device: torch.device, seed: int) -> dict:
+    """llama3.2-3b over DENSE_NCCL_LAYERS layers (bf16 activations), under
+    each strategy: one step's gradients and updated weights over the
+    "process_group" backend, NCCL at world size 1 on a (1, 1) mesh, against
+    the stacked (1, 1) mesh under `deterministic_algorithms()`: bit-equal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.graph.distributed import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(DENSE_ARCH).model_config(), n_layers=DENSE_NCCL_LAYERS)
+    batch = to_device(next(iter(TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, DENSE_BATCH, seed=seed))), device)
+
+    def runs(mesh, want: dict | None = None) -> dict:
+        """Each strategy's (gradients, updated weights, loss), kept on the
+        card; against `want`, whether they are bit-equal to it."""
+        out = {}
+        with deterministic_algorithms():
+            for strategy in ("tp_sp", "fsdp"):
+                c = dataclasses.replace(cfg, rules=MeshRules(strategy=strategy))
+                p = tfm.shard_params(tfm.init_params(c, seed, device=device), c, mesh)
+                g = train_grads(p, batch, c, mesh)
+                init, step = make_train_step(lambda q, b: tfm.loss_fn(q, b, c, mesh=mesh),
+                                             adamw(TRAIN_LR, mesh=mesh, sharded=tfm.sharded_specs(c, mesh)))
+                st, metrics = step(init(p), batch)
+                got = (g, tuple(tree_leaves(st.params)), float(metrics["loss"]))
+                if want is None:
+                    out[strategy] = got
+                else:
+                    w = want.pop(strategy)
+                    out[strategy] = bool(bit_equal(got[0], w[0]) and bit_equal(got[1], w[1]) and got[2] == w[2])
+                del p, g, st, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    want = runs(make_mesh((1, 1), MESH_AXES, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            same = runs(make_mesh((1, 1), MESH_AXES, backend="process_group", device=device), want)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    r = {"backend": backend, "world_size": 1, "mesh": {a: 1 for a in MESH_AXES}, "layers": DENSE_NCCL_LAYERS,
+         "deterministic_algorithms": True,
+         **{f"{k}_grads_and_step_bit_equal_stacked": v for k, v in same.items()}}
+    check(r["tp_sp_grads_and_step_bit_equal_stacked"] and r["fsdp_grads_and_step_bit_equal_stacked"],
+          f"dense training over NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
+    return r
+
+
+def dense_attention(device: torch.device, timer: Timer, mesh) -> dict:
+    """`flash_attention` and its backward at llama3.2-3b's tp_sp per-engine
+    shape on `mesh` (every engine's rows and heads folded into the kernel's
+    batch: q (DENSE_BATCH / data × model × rows, 128, 24 / model, 128), k/v
+    with 8 / model heads), bf16, causal: against the plain versions, the
+    bounds and `scaled_dot_product_attention` (forward, and its backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    cfg = get_arch(DENSE_ARCH).model_config()
+    tp = mesh.shape["model"]
+    b = DENSE_BATCH * tp  # (data rows × model engines × the data row's batch), folded
+    s, hq, hkv, dh = LM_TRAIN_SEQ, cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=device).to(torch.bfloat16) for h in (hq, hkv, hkv))
+    do = torch.randn((b, s, hq, dh), generator=gen, device=device).to(torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    plain = flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=True)
+    torch.cuda.synchronize()
+    fwd_err = float((o.float() - o_ref.float()).abs().max())
+    check(torch.allclose(o.float(), o_ref.float(), **BF16_TOL), f"attention at the tp_sp shape vs plain: {fwd_err}")
+    bwd_rel = max(float((a.float() - w.float()).abs().max()) / (float(w.float().abs().max()) + 1e-6)
+                  for a, w in zip(grads, plain))
+    check(bwd_rel <= BWD_REL["bf16"], f"attention backward at the tp_sp shape vs plain: {bwd_rel}")
+    del plain
+    # yardsticks, used nowhere in the port: the library's forward and its backward in its own layout
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    bound, by = attention_bound_ms(q, k, True, 0)
+    bbound, bby = attention_bwd_bound_ms(q, k, True, 0)
+    out = {"q": list(q.shape), "k": list(k.shape), "dtype": "bfloat16", "causal": True,
+           "forward": {"ms": timer.device_ms(lambda: flash_attention(q, k, v, causal=True)),
+                       "call_ms": timer.call_ms(lambda: flash_attention(q, k, v, causal=True)),
+                       "plain_ms": timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=2, reps=3),
+                       "bound_ms": bound, "bound_by": by, "library_ms": lib_fwd, "max_abs_err": fwd_err},
+           "backward": {"ms": timer.device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+                                              calls=5, reps=10),
+                        "call_ms": timer.call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+                                                 calls=5, reps=10),
+                        "plain_ms": timer.call_ms(lambda: flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref,
+                                                                                  causal=True), calls=2, reps=3),
+                        "bound_ms": bbound, "bound_by": bby,
+                        "library_ms": timer.call_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                                                retain_graph=True), calls=5, reps=10),
+                        "max_rel_err": bwd_rel},
+           "timing": "ms: device time replayed from a CUDA graph; call_ms, plain_ms (flash_attention_ref, "
+                     "flash_attention_bwd_ref), library_ms (scaled_dot_product_attention(is_causal, enable_gqa) on "
+                     "(B, H, S, dh) copies; its backward by torch.autograd.grad): calls enqueued back to back"}
+    del q, k, v, o, do, lse, o_ref, lse_ref, qt, kt, vt, lib_out, dot, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_dense(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """(g) Megatron TP and FSDP dense training on MESH_SHAPE: `dense_train`,
+    `dense_grads` for llama3.2-3b and yi-34b, `nccl_world_one_dense`,
+    `dense_attention`.  Returns (the `mesh_dense` line, the tp_sp training
+    run's kernel launches)."""
+    from repro_torch.graph.distributed import make_mesh
+
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    t0 = time.perf_counter()
+    train, launches = dense_train(device, seed, mesh)
+    train["seconds"] = time.perf_counter() - t0
+    print(f"mesh_dense: llama trained, step ms {train['step_ms']}", file=sys.stderr, flush=True)
+    grads = {}
+    for arch in (DENSE_ARCH, DENSE_WIDE_ARCH):
+        t0 = time.perf_counter()
+        grads[arch] = dense_grads(arch, device, seed, mesh)
+        grads[arch]["seconds"] = time.perf_counter() - t0
+        print(f"mesh_dense: {arch} float32 gradients held", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    nccl = nccl_world_one_dense(device, seed)
+    nccl["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attn = dense_attention(device, timer, mesh)
+    attn["seconds"] = time.perf_counter() - t0
+    out = {"llama": train, "float32_grads_vs_one_device": grads, "nccl": nccl, "attention_tp_shape": attn,
+           "card": smi, "weights": "random, from a seeded torch.Generator on the card (the train phase's seed)",
+           "timing": "step ms: the host clock between the ends of consecutive steps (each ends on the loss's "
+                     "read), median of all but the first; the routes in turns, one device's a mean of two"}
+    say("mesh_dense", **out)
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4644,6 +4989,9 @@ def main() -> int:
     perm = np.asarray(dist_out["mapper"]["site_permutation"])
     _, train_mesh, halo_site = phase_mesh_train(device, graph, perm, args.seed, info["nvidia_smi"], timer)
     del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense, dense_launches = phase_mesh_dense(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -4700,6 +5048,18 @@ def main() -> int:
         "launches_mesh_models": mesh["olmoe"]["flash_attention_launches_a_drain"]["ep"],
         "launches_mesh_models_qwen": mesh["qwen"]["flash_attention_launches_a_drain"]["ep"],
         "launches_mesh_train": train_mesh["flash_attention"], "launches_mesh_train_qwen": train_mesh["flash_attention_qwen"],
+        "launches_mesh_dense": dense_launches["flash_attention"],
+    }, {
+        "name": "flash_attention.tp", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": dense_launches["flash_attention"],
+        "max_abs_err": dense["attention_tp_shape"]["forward"]["max_abs_err"],
+        **{k: dense["attention_tp_shape"]["forward"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                                                   "library_ms")},
+        "shape": f"llama3.2-3b's tp_sp training attention on {MESH_SHAPE} (every engine's rows and its 3 of 24 query "
+                 f"and 1 of 8 kv heads folded into the batch): q {tuple(dense['attention_tp_shape']['q'])}, k/v "
+                 f"{tuple(dense['attention_tp_shape']['k'])} bf16, causal; library: scaled_dot_product_attention",
+        "backward": {"source": FA_BWD_SOURCE, "launches": dense_launches["flash_attention_bwd"],
+                     **dense["attention_tp_shape"]["backward"]},
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
@@ -4719,6 +5079,7 @@ def main() -> int:
         "launches_moe_train_qwen": moe_train_launches["flash_attention_bwd_qwen"],
         "launches_mesh_train": train_mesh["flash_attention_bwd"],
         "launches_mesh_train_qwen": train_mesh["flash_attention_bwd_qwen"],
+        "launches_mesh_dense": dense_launches["flash_attention_bwd"],
         "moe_train_shape": {"shape": "olmoe-1b-7b training attention: q/k/v (8, 128, 16, 128) bf16, causal",
                             **{k: attn["backward"]["timed"]["moe_train"][k] for k in (
                                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",

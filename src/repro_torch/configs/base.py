@@ -6,11 +6,13 @@ An `LmArch`, `GnnArch` or `RecsysArch` knows its published configuration
 `smoke_config()` the CPU tests run, and `model_flops(cell)`, the useful-FLOPs
 yardstick (6·N·D train / 2·N·D forward).  There is no dry-run case here:
 the production mesh is `launch/mesh.py` and the sharding rules are
-`models/sharding.py` (`MeshRules`; `moe.layer_specs`, `recsys.param_specs`),
-and the dry-run's batch specs (`GnnArch.batch_specs`, ShapeDtypeStructs and
-PartitionSpecs) belong to the tooling of Queue A 10.  The configs keep
-MoE's `impl="local"` and dcn-v2's `lookup_impl="gather"`; EP and the
-sharded lookup are switched on with `dataclasses.replace` and run on a mesh
+`models/sharding.py` (`MeshRules`) with each model's specs
+(`transformer.param_specs` and `kv_cache_specs`, `moe.layer_specs`,
+`recsys.param_specs`), and the dry-run's batch specs (`GnnArch.batch_specs`,
+ShapeDtypeStructs and PartitionSpecs) belong to the tooling of Queue A 10.
+The configs keep MoE's `impl="local"`, dcn-v2's `lookup_impl="gather"` and
+the transformer's default `rules` ("tp_sp"); EP, the sharded lookup and the
+"fsdp" strategy are switched on with `dataclasses.replace` and run on a mesh
 the caller passes.
 """
 from __future__ import annotations

@@ -36,10 +36,11 @@ __all__ = ["P", "MeshRules", "axis_if_divisible", "shard_tensor", "unshard_tenso
 class P(tuple):
     """A partition spec: entry i names the mesh axis (or a tuple of axes, in
     row-major order) that tensor dim i is split over, None where it is whole;
-    dims past the spec's length are whole."""
+    dims past the spec's length are whole.  A one-axis tuple is kept as its
+    axis, as `jax.sharding.PartitionSpec` keeps it."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, (p[0] if isinstance(p, tuple) and len(p) == 1 else p for p in parts))
 
 
 def axis_if_divisible(dim: int, axis: str | tuple[str, ...] | None, mesh=None):

@@ -15,12 +15,20 @@ What changes:
     attention forward kernel runs twice a layer in a training step (an MoE
     layer routes twice too, and logs its routing once:
     `moe.checkpoint_contexts`).  There is no ambient mesh: `forward`,
-    `loss_fn`, `prefill` and the decode steps take `mesh=` and hand it to
-    the MoE block (impl="ep_shardmap" runs over it); the rest of the model
-    runs whole on every process and ignores it.  For EP the expert stacks
+    `loss_fn`, `prefill` and the decode steps take `mesh=`.  With `cfg.moe`
+    they hand it to the MoE block (impl="ep_shardmap" runs over it) and run
+    the rest of the model whole on every process; for EP the expert stacks
     are laid out on the mesh (`shard_params`: (local engines…, L, e_l, ·,
-    ·)); their layer axis follows that prefix, and the split and the
-    recompute carry it along.
+    ·)).  A dense model's `forward` and `loss_fn` on a mesh are Megatron TP
+    or FSDP as `cfg.rules` says (`models.dense_mesh`): every leaf laid out
+    by `shard_params` as `param_specs` says, (local engines…, [L,] block…),
+    and whole params refused.  A laid-out stack's layer axis follows the
+    local-engine prefix, and the split and the recompute carry it along.
+    `prefill` and the decode steps of a dense model still run whole (TP
+    serving over `kv_cache_specs`' layout is not ported yet).
+  * `TransformerConfig.rules`, `param_specs` and `kv_cache_specs` are the
+    reference's, over `models.sharding`'s `P` (a mesh, where given, is read
+    for its axis sizes only).
   * Attention of prefill and forward goes through `ops.flash_attention`
     (the CUDA kernel for a CUDA tensor; with grad on, through its autograd
     Function, whose backward is the kernel `csrc/flash_attention_bwd.cu`).
@@ -46,12 +54,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import dense_mesh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     Initializer,
@@ -61,10 +71,11 @@ from repro_torch.models.layers import (
     rope_table,
     softmax_cross_entropy,
 )
+from repro_torch.models.sharding import P, MeshRules, axis_if_divisible, shard_tensor, unshard_tensor
 
-__all__ = ["TransformerConfig", "layer_shapes", "init_params", "cast_params", "shard_params", "unshard_params",
-           "sharded_specs", "forward", "loss_fn", "init_kv_cache", "decode_step", "decode_step_batched_pos",
-           "prefill"]
+__all__ = ["TransformerConfig", "layer_shapes", "init_params", "param_specs", "kv_cache_specs", "cast_params",
+           "shard_params", "unshard_params", "sharded_specs", "forward", "loss_fn", "init_kv_cache", "decode_step",
+           "decode_step_batched_pos", "prefill"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +98,7 @@ class TransformerConfig:
     attn_skip_masked_blocks: bool = False
     attn_impl: str = "auto"  # ops.flash_attention's impl for prefill/forward
     remat: bool = True  # recompute each layer in the backward (forward with grad on)
+    rules: MeshRules = dataclasses.field(default_factory=MeshRules)
 
     @property
     def head_dim(self) -> int:
@@ -159,6 +171,44 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *,
     return params
 
 
+def param_specs(cfg: TransformerConfig, mesh=None) -> dict:
+    """The spec tree parallel to `init_params`' output: the reference's
+    `param_specs` (column-parallel wq/wk/wv/w_gate/w_up and lm_head,
+    row-parallel wo/w_down, the embedding split by vocab; with `cfg.moe`,
+    `moe.layer_specs`); `mesh` decides which dims divide."""
+    r = cfg.rules
+    d, dh = cfg.d_model, cfg.head_dim
+    pre = 1  # params are always layer-stacked
+    layers = {
+        "attn_norm": r.replicated(prefix=pre + 1),
+        "wq": r.col_parallel(d, cfg.n_heads * dh, prefix=pre, mesh=mesh),
+        "wk": r.col_parallel(d, cfg.n_kv_heads * dh, prefix=pre, mesh=mesh),
+        "wv": r.col_parallel(d, cfg.n_kv_heads * dh, prefix=pre, mesh=mesh),
+        "wo": r.row_parallel(cfg.n_heads * dh, d, prefix=pre, mesh=mesh),
+        "mlp_norm": r.replicated(prefix=pre + 1),
+    }
+    if cfg.moe is None:
+        layers.update({
+            "w_gate": r.col_parallel(d, cfg.d_ff, prefix=pre, mesh=mesh),
+            "w_up": r.col_parallel(d, cfg.d_ff, prefix=pre, mesh=mesh),
+            "w_down": r.row_parallel(cfg.d_ff, d, prefix=pre, mesh=mesh),
+        })
+    else:
+        layers.update(moe_lib.layer_specs(cfg.moe, d, r, prefix=pre, mesh=mesh))
+    specs = {"embed": r.vocab_embed(cfg.vocab, d, mesh=mesh), "layers": layers, "final_norm": P()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = r.col_parallel(d, cfg.vocab, prefix=0, mesh=mesh)
+    return specs
+
+
+def kv_cache_specs(cfg: TransformerConfig, mesh=None) -> dict:
+    """The reference's KV cache specs: (L, B, max_seq, Hkv, dh), the batch over
+    the rules' batch axes, the KV heads over "model" where they divide."""
+    r = cfg.rules
+    spec = P(None, r.batch, None, axis_if_divisible(cfg.n_kv_heads, r.model, mesh), None)
+    return {"k": spec, "v": spec}
+
+
 def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | None = None) -> dict:
     """The same tree with every tensor in `cfg.dtype` (and on `device`, where
     given).  Every use casts a weight to the activation type first, so
@@ -177,35 +227,79 @@ def _ep(cfg: TransformerConfig) -> bool:
 
 
 def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
-    """The tree as EP on `mesh` takes it: the layer-stacked expert stacks
-    laid out by `moe.shard_experts` (this process's experts only), every
-    other leaf whole and shared, not copied.  Without EP, `params`.  A
-    laid-out stack keeps its shape, (local engines…, L, e_l, ·, ·), with the
-    layers outermost in memory: one layer's slab is then contiguous over the
-    local engines, as EP reads it, and not copied every layer."""
-    if not _ep(cfg):
-        return params
-    layers = moe_lib.shard_experts(cfg.moe, params["layers"], mesh, prefix=1)
+    """The tree as the model takes it on `mesh`.  Dense: every leaf laid out
+    by `sharding.shard_tensor` as `param_specs(cfg, mesh)` says (a replicated
+    leaf as (1…, ·)), for Megatron TP or FSDP.  With `cfg.moe`: for EP the
+    layer-stacked expert stacks laid out by `moe.shard_experts` (this
+    process's experts only), every other leaf whole and shared, not copied;
+    without EP, `params`.  A laid-out stack keeps the layers outermost in
+    memory, (local engines…, L, ·…) stored layer-major: one layer's block is
+    then contiguous over the local engines, as the layers read it, and not
+    copied every layer."""
     n = len(mesh.axis_names)
-    for k in moe_lib.EXPERT_KEYS:
-        layers[k] = layers[k].movedim(n, 0).contiguous().movedim(0, n)
-    return dict(params, layers=layers)
+
+    def layer_major(t: torch.Tensor) -> torch.Tensor:
+        return t.movedim(n, 0).contiguous().movedim(0, n)
+
+    if cfg.moe is not None:
+        if not _ep(cfg):
+            return params
+        layers = moe_lib.shard_experts(cfg.moe, params["layers"], mesh, prefix=1)
+        for k in moe_lib.EXPERT_KEYS:
+            layers[k] = layer_major(layers[k])
+        return dict(params, layers=layers)
+    specs = param_specs(cfg, mesh)
+    out = {k: shard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: layer_major(shard_tensor(v, specs["layers"][k], mesh)) for k, v in params["layers"].items()}
+    return out
 
 
 def unshard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
-    """The inverse of `shard_params` (a gradient tree too): whole stacks."""
-    if not _ep(cfg):
-        return params
-    return dict(params, layers=moe_lib.unshard_experts(cfg.moe, params["layers"], mesh, prefix=1))
+    """The inverse of `shard_params` (a gradient tree too): whole leaves."""
+    if cfg.moe is not None:
+        if not _ep(cfg):
+            return params
+        return dict(params, layers=moe_lib.unshard_experts(cfg.moe, params["layers"], mesh, prefix=1))
+    specs = param_specs(cfg, mesh)
+    out = {k: unshard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: unshard_tensor(v, specs["layers"][k], mesh) for k, v in params["layers"].items()}
+    return out
 
 
-def sharded_specs(cfg: TransformerConfig) -> dict:
-    """{leaf path: spec} of the leaves `shard_params` lays out (the
+def sharded_specs(cfg: TransformerConfig, mesh) -> dict:
+    """{leaf path: spec} of the leaves `shard_params` lays out on `mesh` (the
     optimizer's global norm adds their squares over the engines that split
-    them)."""
-    if not _ep(cfg):
-        return {}
-    return {("layers", k): spec for k, spec in moe_lib.ep_specs(cfg.moe, prefix=1).items()}
+    them, and counts a replicated one once)."""
+    if cfg.moe is not None:
+        if not _ep(cfg):
+            return {}
+        return {("layers", k): spec for k, spec in moe_lib.ep_specs(cfg.moe, prefix=1).items()}
+    specs = param_specs(cfg, mesh)
+    out = {(k,): spec for k, spec in specs.items() if k != "layers"}
+    out.update({("layers", k): spec for k, spec in specs["layers"].items()})
+    return out
+
+
+def _laid_out_specs(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """`param_specs(cfg, mesh)`; raises unless every leaf of `params` is laid
+    out on `mesh` as `shard_params` lays it."""
+    specs = param_specs(cfg, mesh)
+    whole = {"embed": (cfg.vocab, cfg.d_model), "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        whole["lm_head"] = (cfg.d_model, cfg.vocab)
+    leaves = [((k,), params[k], whole[k], specs[k]) for k in whole]
+    leaves += [(("layers", k), params["layers"][k], (cfg.n_layers, *s), specs["layers"][k])
+               for k, s in layer_shapes(cfg).items()]
+    for path, v, shape, spec in leaves:
+        entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+        axes = [() if e is None else ((e,) if isinstance(e, str) else tuple(e)) for e in entries]
+        used = {a for ax in axes for a in ax}
+        want = tuple(s if a in used else 1 for a, s in zip(mesh.axis_names, mesh.local_shape))
+        want += tuple(d // int(np.prod([mesh.shape[a] for a in ax])) for d, ax in zip(shape, axes))
+        if tuple(v.shape) != want:
+            raise ValueError(f"a dense model on a mesh takes its params laid out on it (transformer.shard_params): "
+                             f"{'/'.join(path)} is {tuple(v.shape)}, want {want}")
+    return specs
 
 
 # ------------------------------ forward -----------------------------------
@@ -261,9 +355,10 @@ def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None, mesh=N
 
 
 def _layer_axis(key: str, v: torch.Tensor) -> int:
-    """A stacked leaf's layer axis: 0, or after the local-engine prefix of an
-    expert stack laid out on a mesh (`shard_params`; 3 dims a layer)."""
-    return v.dim() - 4 if key in moe_lib.EXPERT_KEYS else 0
+    """A stacked leaf's layer axis: 0, or after the local-engine prefix of a
+    leaf laid out on a mesh (`shard_params`): what precedes a layer's dims (1
+    a norm, 3 an expert stack, else 2)."""
+    return v.dim() - 1 - (1 if "norm" in key else 3 if key in moe_lib.EXPERT_KEYS else 2)
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -290,7 +385,12 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor
 
 def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V).  `mesh`: the engine mesh an MoE
-    layer with impl="ep_shardmap" runs on (the rest ignores it)."""
+    layer with impl="ep_shardmap" runs on (the rest of an MoE model ignores
+    it); a dense model's Megatron TP / FSDP mesh (`models.dense_mesh`: its
+    params laid out by `shard_params`, the logits whole on every process)."""
+    if mesh is not None and cfg.moe is None:
+        specs = _laid_out_specs(params, cfg, mesh)
+        return dense_mesh.forward(params, _layers(params, cfg.n_layers), tokens, cfg, mesh, specs)
     x = _embed(params, tokens, cfg)
     cos, sin = rope_table(x.shape[1], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -304,6 +404,12 @@ def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch
 
 
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
+    """The mean token cross-entropy in float32 (`valid`, where given, masks
+    tokens); on a dense model's mesh the vocab-parallel one of
+    `models.dense_mesh`, the same on every process."""
+    if mesh is not None and cfg.moe is None:
+        specs = _laid_out_specs(params, cfg, mesh)
+        return dense_mesh.loss_fn(params, _layers(params, cfg.n_layers), batch, cfg, mesh, specs)
     logits = forward(params, batch["tokens"], cfg, mesh=mesh)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     valid = batch.get("valid")

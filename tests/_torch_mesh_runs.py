@@ -1,7 +1,8 @@
 """The port's engine mesh over gloo on the CPU, for `tests/test_torch_distributed.py`,
 `tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`,
 `tests/test_torch_recsys_psum.py` and their training counterparts
-(`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`, the `*_train` jobs:
+(`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py` and
+`tests/test_torch_transformer_tp.py`, the `*_train` jobs:
 every gradient and the params after one AdamW step, by leaf path; a rank
 holds the whole of a replicated leaf and its own block of a laid-out one,
 `engine_block`): `run_gloo(job, tmp_path)` spawns one
@@ -224,7 +225,7 @@ def moe_ep_train_runs(mesh) -> dict:
     params = tfm.shard_params(tfm.init_params(cfg, 0, device="cpu"), cfg, mesh)
     toks = rng.integers(0, cfg.vocab, (4, 13))
     batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
-    sharded = {path: spec for path, spec in tfm.sharded_specs(cfg).items()}
+    sharded = tfm.sharded_specs(cfg, mesh)
     out = train_step_runs(lambda p: tfm.loss_fn(p, batch, cfg, mesh=mesh), params, mesh, sharded)
 
     m = moe.MoEConfig(5, 2, 24, d_ff_shared=40, capacity_factor=1.25, impl="ep_shardmap")
@@ -271,10 +272,44 @@ def recsys_psum_train_runs(mesh) -> dict:
     return out | {"engines": mesh.local_engines}
 
 
+def dense_tp_config(strategy: str, **kw):
+    """The reference's 2 × 2 training test's transformer (2 layers, d 64, 4
+    heads, 2 KV heads, d_ff 128, vocab 128, float32, the recompute on) under
+    `strategy`."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    shape = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=128) | kw
+    return tfm.TransformerConfig("tp", **shape, dtype=torch.float32, rules=MeshRules(strategy=strategy))
+
+
+def dense_tp_train_runs(mesh) -> dict:
+    """One training step of `dense_tp_config` with every leaf laid out by
+    `shard_params`: Megatron TP ("tp_sp": heads on their engines; with one
+    KV head, the head-gather path) and FSDP ("fsdp", a `valid` mask), a batch
+    of 8 × 16 split over the rules' batch axes."""
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, strategy, kw in (("tp_sp", "tp_sp", {}), ("tp_sp_gather", "tp_sp", {"n_kv_heads": 1}),
+                               ("fsdp", "fsdp", {})):
+        cfg = dense_tp_config(strategy, **kw)
+        params = tfm.shard_params(tfm.init_params(cfg, 1, device="cpu"), cfg, mesh)
+        toks = rng.integers(0, cfg.vocab, (8, 17))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+        if strategy == "fsdp":
+            batch["valid"] = torch.from_numpy(rng.random((8, 16)) < 0.8)
+        run = train_step_runs(lambda p: tfm.loss_fn(p, batch, cfg, mesh=mesh), params, mesh,
+                              tfm.sharded_specs(cfg, mesh))
+        out.update({f"{name}/{k}": v for k, v in run.items()})
+    return out | {"engines": mesh.local_engines}
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
         "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
-        "recsys_psum_train": recsys_psum_train_runs}
-JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train")
+        "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs}
+JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):
