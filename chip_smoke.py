@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths, each driven with its kernels' launch counts set to 0 just
+Twelve paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -117,7 +117,16 @@ before and read just after (the paper pipeline once more through its CLI):
   d_ff 20480, vocab 64,000) at full width over 2 layers; both strategies
   over NCCL at world size 1; its kernels are `flash_attention` (twice a
   layer a step, every engine's heads folded into one launch) and
-  `flash_attention_bwd` (once a layer a step).
+  `flash_attention_bwd` (once a layer a step);
+* serving the dense transformer under Megatron TP (`models.dense_mesh`'s
+  prefill and decode over a KV cache laid out by `kv_cache_specs`):
+  llama3.2-3b at its published width and depth through
+  `launch.serve.build_engine(..., mesh=)` on (2, 8) under "tp_sp" with the
+  serving path's traffic, beside one device on the same bf16 weights; in
+  float32 under "tp_sp" and "fsdp" 16 one-slot prefills of 384-512 tokens and
+  8 decode steps at the rows' own positions against one device's; both
+  strategies over NCCL at world size 1; its kernel is `flash_attention` (once
+  a layer a prefill, every engine's heads folded into one launch).
 
 Phases, one JSON line each:
 
@@ -272,6 +281,17 @@ Phases, one JSON line each:
              layout; both strategies over NCCL at world size 1 bit-equal to
              stacked; the attention kernels at the tp_sp per-engine shape
              against their plain versions, bounds and SDPA
+  mesh_dense_serve  Megatron TP serving on (2, 8): llama3.2-3b drained
+             through `build_engine(..., mesh=)` under tp_sp and on one device
+             in turns (8 requests, 28 × 8 attention launches a drain,
+             finite logits, prefill tokens/s, decode ms a step, peak memory,
+             the bytes a prefill and a decode step move, the share of served
+             tokens equal to one device's); float32 prefill and decode
+             logits and the unsharded cache under tp_sp and fsdp within 2e-3
+             of one device's, two runs bit-equal; both strategies' prefill
+             and decode over NCCL at world size 1 bit-equal to stacked; the
+             attention kernel at the per-engine prefill shape against its
+             plain version, bound and SDPA
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -283,7 +303,9 @@ the forward's with `launches_mesh_models`, the bag's with its
 `psum_model` call site; every kernel with its `launches_mesh_train`, and
 ell_spmm with its `halo_transpose` call site; the attention rows with their
 `launches_mesh_dense`, and `flash_attention.tp`: the forward and the
-backward at the tp_sp per-engine shape),
+backward at the tp_sp per-engine shape; the forward's
+`launches_mesh_dense_serve`, and `flash_attention.tp_prefill`: the forward
+at the tp_sp per-engine prefill shape),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -4610,6 +4632,16 @@ DENSE_F32_LAYERS = 2
 DENSE_NCCL_LAYERS = 2
 
 
+def gather_bytes(mesh, fsdp: set, shape: tuple, spec, itemsize: int) -> int:
+    """Bytes all engines receive in one FSDP gather of a leaf of `shape`
+    laid out by `spec`: over the `fsdp` axes its dims are split over (an
+    engine of a group of g receives g - 1 blocks)."""
+    axes = [a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)]
+    group = int(np.prod([mesh.shape[a] for a in axes if a in fsdp]))
+    split = int(np.prod([mesh.shape[a] for a in axes]))
+    return mesh.num_engines * (group - 1) * int(np.prod(shape)) * itemsize // split
+
+
 def dense_step_bytes(cfg, mesh, batch: int, seq: int) -> dict:
     """The bytes one training step's collectives move on `mesh` under
     `cfg.rules`, each as the port runs it (an all-gather-based collective: an
@@ -4626,14 +4658,8 @@ def dense_step_bytes(cfg, mesh, batch: int, seq: int) -> dict:
     r, specs, engines = cfg.rules, tfm.param_specs(cfg, mesh), mesh.num_engines
     fsdp = set((r.fsdp,) if isinstance(r.fsdp, str) else r.fsdp)
 
-    def axes(entry):
-        return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
-
-    def gathered(shape, spec) -> int:
-        """Bytes all engines receive in one gather of a float32 leaf."""
-        group = int(np.prod([mesh.shape[a] for e in spec for a in axes(e) if a in fsdp]))
-        split = int(np.prod([mesh.shape[a] for e in spec for a in axes(e)]))
-        return engines * (group - 1) * int(np.prod(shape)) * 4 // split
+    def gathered(shape, spec) -> int:  # a float32 leaf
+        return gather_bytes(mesh, fsdp, shape, spec, 4)
 
     layer = sum(gathered(shape, specs["layers"][k][1:]) for k, shape in tfm.layer_shapes(cfg).items())
     top = gathered((cfg.vocab, cfg.d_model), specs["embed"])
@@ -4831,7 +4857,7 @@ def dense_attention(device: torch.device, timer: Timer, mesh) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
     cfg = get_arch(DENSE_ARCH).model_config()
@@ -4841,30 +4867,22 @@ def dense_attention(device: torch.device, timer: Timer, mesh) -> dict:
     gen = torch.Generator(device=device).manual_seed(11)
     q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=device).to(torch.bfloat16) for h in (hq, hkv, hkv))
     do = torch.randn((b, s, hq, dh), generator=gen, device=device).to(torch.bfloat16)
+    forward = attention_forward_site(q, k, v, timer)
     o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     o_ref, lse_ref = flash_attention_ref(q, k, v, causal=True, return_lse=True)
     grads = flash_attention_bwd(q, k, v, o, do, lse, causal=True)
     plain = flash_attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=True)
     torch.cuda.synchronize()
-    fwd_err = float((o.float() - o_ref.float()).abs().max())
-    check(torch.allclose(o.float(), o_ref.float(), **BF16_TOL), f"attention at the tp_sp shape vs plain: {fwd_err}")
     bwd_rel = max(float((a.float() - w.float()).abs().max()) / (float(w.float().abs().max()) + 1e-6)
                   for a, w in zip(grads, plain))
     check(bwd_rel <= BWD_REL["bf16"], f"attention backward at the tp_sp shape vs plain: {bwd_rel}")
     del plain
-    # yardsticks, used nowhere in the port: the library's forward and its backward in its own layout
+    # a yardstick, used nowhere in the port: the library's backward in its own layout
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    with torch.no_grad():
-        lib_fwd = timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
-    bound, by = attention_bound_ms(q, k, True, 0)
     bbound, bby = attention_bwd_bound_ms(q, k, True, 0)
-    out = {"q": list(q.shape), "k": list(k.shape), "dtype": "bfloat16", "causal": True,
-           "forward": {"ms": timer.device_ms(lambda: flash_attention(q, k, v, causal=True)),
-                       "call_ms": timer.call_ms(lambda: flash_attention(q, k, v, causal=True)),
-                       "plain_ms": timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=2, reps=3),
-                       "bound_ms": bound, "bound_by": by, "library_ms": lib_fwd, "max_abs_err": fwd_err},
+    out = {"q": list(q.shape), "k": list(k.shape), "dtype": "bfloat16", "causal": True, "forward": forward,
            "backward": {"ms": timer.device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
                                               calls=5, reps=10),
                         "call_ms": timer.call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
@@ -4912,6 +4930,339 @@ def phase_mesh_dense(device: torch.device, seed: int, smi: str | None, timer: Ti
            "timing": "step ms: the host clock between the ends of consecutive steps (each ends on the loss's "
                      "read), median of all but the first; the routes in turns, one device's a mean of two"}
     say("mesh_dense", **out)
+    return out, launches
+
+
+# (h) serving the dense transformer under Megatron TP on MESH_SHAPE (`models.dense_mesh.prefill` / `decode`
+# over a KV cache laid out by `kv_cache_specs`): llama3.2-3b at its published width and depth drained through
+# `build_engine(..., mesh=)` under tp_sp beside one device, in turns, on the same bf16 weights and the serve
+# phase's traffic; float32 logits under tp_sp and fsdp against one device's; NCCL at world size 1; the
+# attention kernel at tp_sp's per-engine prefill shape
+SERVE_TP_TURNS = ("one_device", "tp_sp", "tp_sp", "one_device")
+SERVE_F32_ROWS, SERVE_F32_PROMPT, SERVE_F32_MAX_SEQ, SERVE_F32_STEPS = 16, (384, 513), 576, 8  # 16 rows: fsdp's 16
+SERVE_NCCL_LAYERS, SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT, SERVE_NCCL_STEPS = 2, 4, 64, 4
+TP_PREFILL_S = 2048
+
+
+def dense_serve_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict:
+    """The bytes one forward of a served dense model (a prefill of `rows` ×
+    `seq` tokens, or a decode step of `rows` × 1) moves on `mesh` under
+    `cfg.rules`, each collective as the port runs it on a real mesh (an
+    all-gather-based collective: an engine receives its group's other
+    blocks), summed over the engines: the FSDP gathers of every weight in
+    `cfg.dtype` (once a forward), the model-axis psums of the row-parallel
+    partials (two a layer) and of the vocab-parallel embedding, in
+    `cfg.dtype`, and the gather of the last position's logits (over the
+    vocab's axes, and the batch's where `batch_split`: the rows split over
+    them, else every engine holds them all)."""
+    from repro_torch.models import transformer as tfm
+
+    r, specs, engines = cfg.rules, tfm.param_specs(cfg, mesh), mesh.num_engines
+    fsdp = set((r.fsdp,) if isinstance(r.fsdp, str) else r.fsdp)
+    item = torch.finfo(cfg.dtype).bits // 8
+
+    def gathered(shape, spec) -> int:
+        return gather_bytes(mesh, fsdp, shape, spec, item)
+
+    layer = sum(gathered(shape, specs["layers"][k][1:]) for k, shape in tfm.layer_shapes(cfg).items())
+    top = gathered((cfg.vocab, cfg.d_model), specs["embed"])
+    top += 0 if cfg.tie_embeddings else gathered((cfg.d_model, cfg.vocab), specs["lm_head"])
+    tp = mesh.shape[r.model] if r.model in mesh.shape else 1
+    b_size = int(np.prod([mesh.shape[a] for a in r.batch if a in mesh.shape])) if batch_split else 1
+    local_rows = rows // b_size
+    act = engines * (tp - 1) * local_rows * seq * cfg.d_model * item  # one model-axis psum
+    vocab_split = tuple(specs["embed"])[0] is not None
+    vocab_l = cfg.vocab // (tp if tuple(specs["lm_head"])[1] is not None else 1)
+    logits = engines * (b_size - 1) * local_rows * vocab_l + engines * (tp - 1) * rows * vocab_l
+    return {"fsdp_gathers": cfg.n_layers * layer + top, "model_psums": 2 * cfg.n_layers * act,
+            "embedding_psum": act if vocab_split else 0, "logits_gather": logits * item,
+            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks"}
+
+
+def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None) -> tuple[dict, dict]:
+    """One drain of `prompts` through `build_engine` (SERVE_SLOTS slots,
+    SERVE_MAX_SEQ positions, SERVE_NEW new tokens), after a warm-up prefill
+    and decode step: (the turn's numbers, {uid: tokens})."""
+    from repro_torch.launch.serve import build_engine
+
+    engine = build_engine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device, mesh=mesh)
+    engine.cache, _ = engine.prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
+    _, engine.cache = engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
+                                    torch.zeros(SERVE_SLOTS, dtype=torch.long))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    done, st, wall_s, launches = drain_timed(engine, prompts, SERVE_NEW)
+    out = {"wall_s": wall_s, "prefill_tokens": st["prefill_tokens"], "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_steps": st["decode_steps"], "decode_ms_a_step": st["decode_s"] / st["decode_steps"] * 1e3,
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"], "flash_attention_launches": launches,
+           "finite": st["finite"], "requests_drained": len(done),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kv_cache_shape": list(engine.cache["k"].shape)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {r.uid: list(r.out_tokens) for r in done}
+
+
+def dense_serve_drain(device: torch.device, seed: int, mesh) -> tuple[dict, int]:
+    """llama3.2-3b at its published width and depth served through
+    `build_engine` under tp_sp on `mesh` and on one device, in turns
+    (SERVE_TP_TURNS), on the same bf16 weights and the serve phase's
+    traffic: every request drained, logits finite, one attention launch a
+    layer a prefill; tokens/s, decode ms, peak, the bytes a prefill and a
+    decode step move, the share of served tokens equal to one device's and
+    each request's tokens in common with one device's before the first
+    that differs (a token that differs changes every later one's context).
+    Returns (the entry, the first tp_sp turn's attention launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    cfg = get_arch(SERVE_ARCH).model_config()
+    tp_cfg = dataclasses.replace(cfg, rules=MeshRules(strategy="tp_sp"))
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = tfm.cast_params(tfm.init_params(cfg, seed, device=device), cfg)  # the serve phase's bf16 weights
+    laid = tfm.shard_params(params, tp_cfg, mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+    runs, tokens = {"one_device": [], "tp_sp": []}, {}
+    for name in SERVE_TP_TURNS:
+        on_mesh = name == "tp_sp"
+        r, toks = serve_turn(tp_cfg if on_mesh else cfg, laid if on_mesh else params, prompts, device,
+                             mesh if on_mesh else None)
+        check(r["requests_drained"] == SERVE_REQUESTS and r["finite"], f"llama {name}: {r}")
+        check(r["flash_attention_launches"] == L * SERVE_REQUESTS,
+              f"llama {name}: flash_attention launched {r['flash_attention_launches']} times, want {L} a prefill × "
+              f"{SERVE_REQUESTS}")
+        runs[name].append(r)
+        tokens.setdefault(name, toks)
+    one, tp = tokens["one_device"], tokens["tp_sp"]
+    equal = sum(a == b for u in one for a, b in zip(one[u], tp[u]))
+    total = sum(len(t) for t in one.values())
+    prefix = [next((i for i, (a, b) in enumerate(zip(one[u], tp[u])) if a != b), len(one[u])) for u in sorted(one)]
+    out = {"arch": SERVE_ARCH, "layers": L, "mesh": dict(mesh.shape), "engines": mesh.num_engines,
+           "strategy": "tp_sp", "activations": "bfloat16", "kv_cache": "float32", "slots": SERVE_SLOTS,
+           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS, "prompt_lengths": [int(x) for x in lengths],
+           "max_new_tokens": SERVE_NEW, "setup_s": setup_s, "turns": list(SERVE_TP_TURNS), "runs": runs,
+           "prefill_tok_s": {k: float(np.mean([r["prefill_tok_s"] for r in v])) for k, v in runs.items()},
+           "decode_ms_a_step": {k: float(np.mean([r["decode_ms_a_step"] for r in v])) for k, v in runs.items()},
+           "max_memory_allocated_gb": {k: max(r["max_memory_allocated_gb"] for r in v) for k, v in runs.items()},
+           "flash_attention_launches_a_drain": {k: v[0]["flash_attention_launches"] for k, v in runs.items()},
+           "served_tokens_equal_one_device_share": equal / total, "served_tokens": total,
+           "served_tokens_common_prefix_by_request": prefix,
+           "bytes": {"prefill_2048_one_slot": dense_serve_bytes(tp_cfg, mesh, 1, TP_PREFILL_S, False),
+                     "decode_step": dense_serve_bytes(tp_cfg, mesh, SERVE_SLOTS, 1, True)}}
+    out["tp_sp_vs_one_device_prefill_tok_s"] = out["prefill_tok_s"]["tp_sp"] / out["prefill_tok_s"]["one_device"]
+    out["tp_sp_vs_one_device_decode_ms"] = out["decode_ms_a_step"]["tp_sp"] / out["decode_ms_a_step"]["one_device"]
+    del params, laid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, runs["tp_sp"][0]["flash_attention_launches"]
+
+
+def dense_serve_f32(device: torch.device, seed: int, mesh) -> dict:
+    """llama3.2-3b at its published width and depth in float32 (weights and
+    activations): SERVE_F32_ROWS one-slot prefills of their own lengths into
+    a cache of as many slots and SERVE_F32_MAX_SEQ positions, then
+    SERVE_F32_STEPS `decode_step_batched_pos` steps with every row at its
+    own position, on one device and under tp_sp and fsdp on `mesh` (each
+    twice: bit-equal); every logit and the unsharded cache within MODEL_TOL
+    of one device's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls in the float32 serving check")
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH).model_config(), dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(*SERVE_F32_PROMPT, size=SERVE_F32_ROWS)
+    prompts = [torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, int(n)))).to(device) for n in lengths]
+    steps = [torch.from_numpy(rng.integers(2, cfg.vocab, size=(SERVE_F32_ROWS, 1))).to(device)
+             for _ in range(SERVE_F32_STEPS)]
+    pos0 = torch.from_numpy(lengths.astype(np.int64)).to(device)
+    params = tfm.init_params(cfg, seed, device=device)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(c, p, m) -> dict:
+        cache = tfm.init_kv_cache(c, SERVE_F32_ROWS, SERVE_F32_MAX_SEQ, torch.float32, device=device, mesh=m)
+        pre = torch.cat([tfm.prefill(p, t, cache, c, mesh=m, slot=i)[0] for i, t in enumerate(prompts)])
+        dec = [tfm.decode_step_batched_pos(p, cache, pos0 + i, t, c, mesh=m)[0] for i, t in enumerate(steps)]
+        torch.cuda.synchronize()
+        return {"prefill": pre, "decode": dec, "cache": tfm.unshard_kv_cache(cache, c, m)}
+
+    def diff(a, b) -> float:
+        return float((a - b).abs().max())
+
+    with torch.no_grad():
+        want = run(cfg, params, None)
+        out = {"arch": SERVE_ARCH, "layers": cfg.n_layers, "dtype": "float32", "mesh": dict(mesh.shape),
+               "rows": SERVE_F32_ROWS, "prompt_lengths": [int(x) for x in lengths], "max_seq": SERVE_F32_MAX_SEQ,
+               "decode_steps": SERVE_F32_STEPS, "tolerance": MODEL_TOL,
+               "logits_max_abs": float(want["prefill"].abs().max()), "cache_max_abs": float(want["cache"]["k"].abs().max())}
+        for strategy in ("tp_sp", "fsdp"):
+            c = dataclasses.replace(cfg, rules=MeshRules(strategy=strategy))
+            laid = tfm.shard_params(params, c, mesh)
+            got, again = run(c, laid, mesh), run(c, laid, mesh)
+            same = (torch.equal(got["prefill"], again["prefill"]) and all(map(torch.equal, got["decode"], again["decode"]))
+                    and all(torch.equal(got["cache"][k], again["cache"][k]) for k in ("k", "v")))
+            del again, laid
+            close = (torch.allclose(got["prefill"], want["prefill"], **MODEL_TOL)
+                     and all(torch.allclose(a, b, **MODEL_TOL) for a, b in zip(got["decode"], want["decode"]))
+                     and all(torch.allclose(got["cache"][k], want["cache"][k], **MODEL_TOL) for k in ("k", "v")))
+            greedy = [torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip([got["prefill"], *got["decode"]],
+                                                                                [want["prefill"], *want["decode"]])]
+            out[strategy] = {"prefill_max_abs_err": diff(got["prefill"], want["prefill"]),
+                             "decode_max_abs_err_by_step": [diff(a, b) for a, b in zip(got["decode"], want["decode"])],
+                             "cache_max_abs_err": max(diff(got["cache"][k], want["cache"][k]) for k in ("k", "v")),
+                             "greedy_tokens_equal_prefill_then_steps": greedy, "within_tolerance": close,
+                             "two_runs_bit_equal": same}
+            del got
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(same, f"float32 serving under {strategy}: two runs differ")
+            check(close, f"float32 serving under {strategy} vs one device: {out[strategy]}")
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_world_one_serve(device: torch.device, seed: int) -> dict:
+    """llama3.2-3b over SERVE_NCCL_LAYERS layers (bf16 activations), under
+    each strategy: a prefill of SERVE_NCCL_ROWS rows and SERVE_NCCL_STEPS
+    decode steps over the "process_group" backend, NCCL at world size 1 on a
+    (1, 1) mesh, against the stacked (1, 1) mesh under
+    `deterministic_algorithms()`: logits and cache bit-equal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.distributed import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH).model_config(), n_layers=SERVE_NCCL_LAYERS)
+    rng = np.random.default_rng(seed + 2)
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT))).to(device)
+    steps = [torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, 1))).to(device)
+             for _ in range(SERVE_NCCL_STEPS)]
+    pos0 = torch.from_numpy(SERVE_NCCL_PROMPT + rng.integers(0, 4, SERVE_NCCL_ROWS)).to(device)
+    params = tfm.cast_params(tfm.init_params(cfg, seed, device=device), cfg)
+
+    def runs(mesh, want: dict | None = None) -> dict:
+        out = {}
+        with deterministic_algorithms(), torch.no_grad():
+            for strategy in ("tp_sp", "fsdp"):
+                c = dataclasses.replace(cfg, rules=MeshRules(strategy=strategy))
+                p = tfm.shard_params(params, c, mesh)
+                cache = tfm.init_kv_cache(c, SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT + 16, torch.float32, device=device,
+                                          mesh=mesh)
+                got = [tfm.prefill(p, prompt, cache, c, mesh=mesh)[0]]
+                got += [tfm.decode_step_batched_pos(p, cache, pos0 + i, t, c, mesh=mesh)[0] for i, t in enumerate(steps)]
+                got += [cache["k"], cache["v"]]
+                out[strategy] = got if want is None else all(map(torch.equal, got, want.pop(strategy)))
+        return out
+
+    want = runs(make_mesh((1, 1), MESH_AXES, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            same = runs(make_mesh((1, 1), MESH_AXES, backend="process_group", device=device), want)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = {"backend": backend, "world_size": 1, "mesh": {a: 1 for a in MESH_AXES}, "layers": SERVE_NCCL_LAYERS,
+         "rows": SERVE_NCCL_ROWS, "prompt": SERVE_NCCL_PROMPT, "decode_steps": SERVE_NCCL_STEPS,
+         "deterministic_algorithms": True, **{f"{k}_logits_and_cache_bit_equal_stacked": v for k, v in same.items()}}
+    check(all(same.values()), f"dense serving over NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
+    return r
+
+
+def attention_forward_site(q, k, v, timer: Timer) -> dict:
+    """`flash_attention` (causal) on q, k, v against its plain version (within
+    BF16_TOL), timed beside the plain version, its bound and
+    `scaled_dot_product_attention` (a yardstick, used nowhere in the port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    o, o_ref = flash_attention(q, k, v, causal=True), flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((o.float() - o_ref.float()).abs().max())
+    check(torch.allclose(o.float(), o_ref.float(), **BF16_TOL), f"attention at {tuple(q.shape)} vs plain: {err}")
+    del o, o_ref
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bound, by = attention_bound_ms(q, k, True, 0)
+    return {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype).removeprefix("torch."), "causal": True,
+            "ms": timer.device_ms(lambda: flash_attention(q, k, v, causal=True)),
+            "call_ms": timer.call_ms(lambda: flash_attention(q, k, v, causal=True)),
+            "plain_ms": timer.call_ms(lambda: flash_attention_ref(q, k, v, causal=True), calls=2, reps=3),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": timer.call_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                               enable_gqa=True)),
+            "max_abs_err": err}
+
+
+def dense_serve_attention(device: torch.device, timer: Timer, mesh) -> dict:
+    """`flash_attention` at llama3.2-3b's tp_sp per-engine prefill shape on
+    `mesh`: one slot's TP_PREFILL_S-token prompt, held once along "data", the
+    model engines' 24 / model query and 8 / model kv heads folded into the
+    batch (q (model, S, 3, 128)), and with both data engines' copies
+    folded (q (data × model, S, 3, 128), a "process_group" row's work summed),
+    bf16, causal."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(SERVE_ARCH).model_config()
+    tp = mesh.shape["model"]
+    hq, hkv, dh = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    for name, b in (("path", tp), ("both_data_engines", mesh.num_engines)):
+        q, k, v = (torch.randn((b, TP_PREFILL_S, h, dh), generator=gen, device=device).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        out[name] = attention_forward_site(q, k, v, timer)
+        del q, k, v
+    torch.cuda.empty_cache()
+    out["timing"] = ("ms: device time replayed from a CUDA graph; call_ms, plain_ms (flash_attention_ref), library_ms "
+                     "(scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies): calls enqueued "
+                     "back to back")
+    return out
+
+
+def phase_mesh_dense_serve(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, int]:
+    """(h) Megatron TP serving on MESH_SHAPE: `dense_serve_drain`,
+    `dense_serve_f32`, `nccl_world_one_serve`, `dense_serve_attention`.
+    Returns (the `mesh_dense_serve` line, the tp_sp drain's attention
+    launches)."""
+    from repro_torch.graph.distributed import make_mesh
+
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    parts = {}
+    for name, fn in (("llama", lambda: dense_serve_drain(device, seed, mesh)),
+                     ("float32_vs_one_device", lambda: dense_serve_f32(device, seed, mesh)),
+                     ("nccl", lambda: nccl_world_one_serve(device, seed)),
+                     ("attention_tp_prefill_shape", lambda: dense_serve_attention(device, timer, mesh))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        print(f"mesh_dense_serve: {name} done", file=sys.stderr, flush=True)
+        if name == "llama":
+            parts[name], launches = parts[name]
+        parts[name]["seconds"] = time.perf_counter() - t0
+    out = {**parts, "card": smi,
+           "weights": "random, from a seeded torch.Generator on the card (the serve phase's seed)",
+           "timing": "host clock around each prefill / decode call, synchronised on both sides; the routes in "
+                     "turns, each a mean of two"}
+    say("mesh_dense_serve", **out)
     return out, launches
 
 
@@ -4992,6 +5343,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense, dense_launches = phase_mesh_dense(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp, serve_tp_launches = phase_mesh_dense_serve(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -5049,6 +5403,7 @@ def main() -> int:
         "launches_mesh_models_qwen": mesh["qwen"]["flash_attention_launches_a_drain"]["ep"],
         "launches_mesh_train": train_mesh["flash_attention"], "launches_mesh_train_qwen": train_mesh["flash_attention_qwen"],
         "launches_mesh_dense": dense_launches["flash_attention"],
+        "launches_mesh_dense_serve": serve_tp_launches,
     }, {
         "name": "flash_attention.tp", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": dense_launches["flash_attention"],
@@ -5060,6 +5415,17 @@ def main() -> int:
                  f"{tuple(dense['attention_tp_shape']['k'])} bf16, causal; library: scaled_dot_product_attention",
         "backward": {"source": FA_BWD_SOURCE, "launches": dense_launches["flash_attention_bwd"],
                      **dense["attention_tp_shape"]["backward"]},
+    }, {
+        "name": "flash_attention.tp_prefill", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": serve_tp_launches,
+        **{k: serve_tp["attention_tp_prefill_shape"]["path"][k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"llama3.2-3b's tp_sp one-slot prefill attention on {MESH_SHAPE} (the prompt held once along "
+                 "\"data\", every model engine's 3 of 24 query and 1 of 8 kv heads folded into the batch): q "
+                 f"{tuple(serve_tp['attention_tp_prefill_shape']['path']['q'])}, k/v "
+                 f"{tuple(serve_tp['attention_tp_prefill_shape']['path']['k'])} bf16, causal; library: "
+                 "scaled_dot_product_attention",
+        "both_data_engines": serve_tp["attention_tp_prefill_shape"]["both_data_engines"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "

@@ -30,19 +30,26 @@ def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_se
     cache of `slots` × `max_seq` positions.  The weights are kept once, in
     `cfg.dtype` (`tfm.cast_params`).  `mesh`: the engine mesh (e.g.
     `graph.distributed.make_mesh((2, 8), ("data", "model"))`) that every
-    prefill and decode step hands the model, for MoE's impl="ep_shardmap";
-    `params` are then as EP takes them, the expert stacks laid out on the
-    mesh (`tfm.shard_params(params, cfg, mesh)`)."""
+    prefill and decode step hands the model.  A dense model is served on it
+    by Megatron TP or FSDP as `cfg.rules` says: its params laid out
+    (`tfm.shard_params`, unless they are already) and its cache laid out by
+    `tfm.kv_cache_specs`, which splits the slots over the rules' batch axes
+    (a slot count that does not divide raises).  With `cfg.moe`, for
+    impl="ep_shardmap": `params` as EP takes them, the expert stacks laid
+    out on the mesh (`tfm.shard_params(params, cfg, mesh)`), the cache
+    whole."""
     dev = resolve_device(device)
+    tfm.kv_cache_shape(cfg, slots, max_seq, mesh)  # raises for slots that do not divide over the batch axes
     params = tfm.cast_params(params, cfg, device=dev)
+    if mesh is not None and cfg.moe is None and params["embed"].dim() == 2:  # whole: lay it out
+        params = tfm.shard_params(params, cfg, mesh)
 
     def init_cache():
-        return tfm.init_kv_cache(cfg, slots, max_seq, dtype=torch.float32, device=dev)
+        return tfm.init_kv_cache(cfg, slots, max_seq, dtype=torch.float32, device=dev, mesh=mesh)
 
     def prefill_one(cache, slot, tokens):
-        # the slot's range of the slot-batched cache, as views: prefill writes it in place
-        sub = {"k": cache["k"][:, slot:slot + 1], "v": cache["v"][:, slot:slot + 1]}
-        logits, _ = tfm.prefill(params, tokens.to(dev), sub, cfg, mesh=mesh)
+        # the slot's row of the slot-batched cache, written in place
+        logits, _ = tfm.prefill(params, tokens.to(dev), cache, cfg, mesh=mesh, slot=slot)
         return cache, logits
 
     def decode(cache, tokens, pos):

@@ -60,6 +60,7 @@ reference's `act_btd`): GSPMD's layout, the same function.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -67,10 +68,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, rms_norm, rope_table
+from repro_torch.models.layers import apply_rope, gqa_attention, rms_norm, rope_table
 from repro_torch.models.sharding import P, axis_if_divisible, shard_tensor, unshard_tensor
 
-__all__ = ["forward", "loss_fn"]
+__all__ = ["forward", "loss_fn", "prefill", "decode"]
 
 Tensor = torch.Tensor
 
@@ -320,7 +321,11 @@ def _psum_tp(plan: _Plan, y: Tensor, y_axes: frozenset, x_axes: frozenset) -> Te
     return y
 
 
-def _attention(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, cos, sin) -> Tensor:
+def _attention(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, attend) -> Tensor:
+    """The attention block: `attend(q, k, v)` on each engine's q/k/v (local
+    engines…, B_l, S, heads, dh) before RoPE, returning q's shape (the
+    causal forward's `_causal`, prefill's `_prompt_attention`, decode's
+    `_decode_attention`)."""
     mesh, specs, n = plan.mesh, plan.specs["layers"], len(plan.mesh.axis_names)
     h = rms_norm(x, _scale(plan, lp["attn_norm"], x, x_axes))
     qkv = _fan_out(plan, h, x_axes, [_weight(plan, lp[k], specs[k][1:]) for k in ("wq", "wk", "wv")])
@@ -331,20 +336,32 @@ def _attention(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, cos, si
         qkv = [(_gather_dim(mesh, t, (plan.tp,), t.dim() - 1), a - {plan.tp}) if plan.tp in a else (t, a)
                for t, a in qkv]
     (q, qa), (k, _), (v, _) = qkv
-    dh, s = cfg.head_dim, x.shape[-2]
-    q, k, v = (t.reshape(-1, s, t.shape[-1] // dh, dh) for t in (q, k, v))
-    k = apply_rope(k, cos, sin)
-    q = apply_rope(q, cos, sin)
-    out = flash_attention(q, k, v, causal=True, q_offset=0, impl=cfg.attn_impl, block_q=cfg.attn_block_q,
-                          block_k=cfg.attn_block_k, skip_masked_blocks=cfg.attn_skip_masked_blocks)
-    lead = [mesh.local_shape[i] if mesh.axis_names[i] in qa else 1 for i in range(n)]
-    out = out.reshape(*lead, -1, s, out.shape[-2] * dh)
+    out = attend(*(t.unflatten(-1, (-1, cfg.head_dim)) for t in (q, k, v))).flatten(-2)
     wo, wa = _weight(plan, lp["wo"], specs["wo"][1:])
     if plan.tp is not None and plan.tp in wa - qa:  # wo's row blocks: each engine its own columns
         out = _own_block(mesh, mesh.enter(out, plan.tp), plan.tp, out.dim() - 1)
         qa = qa | {plan.tp}
     y, ya = _matmul(plan, out, qa, wo, wa)
     return _psum_tp(plan, y, ya, x_axes)
+
+
+def _folded(t: Tensor) -> Tensor:
+    """(local engines…, B_l, S, heads, dh) → (engines · B_l, S, heads, dh):
+    every engine's rows in the kernel's batch."""
+    return t.reshape(-1, *t.shape[-3:])
+
+
+def _flash(cfg, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Causal attention from position 0 over every engine's rows and heads
+    (after RoPE), one `flash_attention` launch."""
+    out = flash_attention(_folded(q), _folded(k), _folded(v), causal=True, q_offset=0, impl=cfg.attn_impl,
+                          block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+                          skip_masked_blocks=cfg.attn_skip_masked_blocks)
+    return out.reshape(q.shape)
+
+
+def _causal(cfg, cos, sin, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    return _flash(cfg, apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
 
 
 def _ffn(plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict) -> Tensor:
@@ -355,8 +372,8 @@ def _ffn(plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict) -> Tensor:
     return _psum_tp(plan, y, ya, x_axes)
 
 
-def _layer(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, cos, sin) -> Tensor:
-    x = x + _attention(cfg, plan, x, x_axes, lp, cos, sin)
+def _layer(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, attend) -> Tensor:
+    x = x + _attention(cfg, plan, x, x_axes, lp, attend)
     return x + _ffn(plan, x, x_axes, lp)
 
 
@@ -391,19 +408,17 @@ def _embed(cfg, plan: _Plan, table: Tensor, ids: Tensor, axes: frozenset) -> Ten
     return out.to(cfg.dtype)
 
 
-def _logits(cfg, plan: _Plan, params: dict, layers: list, tokens) -> tuple[Tensor, frozenset, frozenset, frozenset]:
-    """Each engine's logits (local engines…, B_l, S, V_l), the axes they
-    differ along, the batch's and the vocab's."""
+def _embedded(cfg, plan: _Plan, params: dict, tokens) -> tuple[Tensor, frozenset]:
+    """The token rows' embeddings (local engines…, B_l, S, D) and the axes
+    they differ along (the batch's)."""
     ids = _rows(plan, tokens).long()
     axes = frozenset(plan.batch)
-    x = _embed(cfg, plan, params["embed"], ids, axes)
-    cos, sin = rope_table(x.shape[-2], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for lp in layers:
-        if remat:
-            x = checkpoint(_layer, cfg, plan, x, axes, lp, cos, sin, use_reentrant=False)
-        else:
-            x = _layer(cfg, plan, x, axes, lp, cos, sin)
+    return _embed(cfg, plan, params["embed"], ids, axes), axes
+
+
+def _head(cfg, plan: _Plan, params: dict, x: Tensor, axes: frozenset) -> tuple[Tensor, frozenset, frozenset]:
+    """Each engine's logits (local engines…, B_l, S, V_l) of the residual
+    `x`, the axes they differ along and the vocab's."""
     h = rms_norm(x, _scale(plan, params["final_norm"], x, axes))
     if cfg.tie_embeddings:
         head, ha = _weight(plan, params["embed"], plan.specs["embed"])
@@ -411,6 +426,27 @@ def _logits(cfg, plan: _Plan, params: dict, layers: list, tokens) -> tuple[Tenso
     else:
         head, ha = _weight(plan, params["lm_head"], plan.specs["lm_head"])
     logits, la = _matmul(plan, h, axes, head, ha)
+    return logits, la, ha
+
+
+def _whole_logits(plan: _Plan, logits: Tensor, vocab: frozenset) -> Tensor:
+    """(B, S, V) on every process from each engine's (local engines…, B_l, S, V_l)."""
+    return unshard_tensor(logits, P(plan.batch or None, None, _ordered(plan.mesh, vocab) or None), plan.mesh)
+
+
+def _logits(cfg, plan: _Plan, params: dict, layers: list, tokens) -> tuple[Tensor, frozenset, frozenset, frozenset]:
+    """Each engine's logits (local engines…, B_l, S, V_l), the axes they
+    differ along, the batch's and the vocab's."""
+    x, axes = _embedded(cfg, plan, params, tokens)
+    cos, sin = rope_table(x.shape[-2], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
+    attend = functools.partial(_causal, cfg, cos, sin)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layers:
+        if remat:
+            x = checkpoint(_layer, cfg, plan, x, axes, lp, attend, use_reentrant=False)
+        else:
+            x = _layer(cfg, plan, x, axes, lp, attend)
+    logits, la, ha = _head(cfg, plan, params, x, axes)
     return logits, la, axes, ha
 
 
@@ -419,7 +455,7 @@ def forward(params: dict, layers: list, tokens, cfg, mesh, specs: dict) -> Tenso
     laid out by `transformer.shard_params`, `layers` its per-layer leaves."""
     plan = _plan(cfg, mesh, specs, len(tokens))
     logits, _, _, vocab = _logits(cfg, plan, params, layers, tokens)
-    return unshard_tensor(logits, P(plan.batch or None, None, _ordered(mesh, vocab) or None), mesh)
+    return _whole_logits(plan, logits, vocab)
 
 
 def _nll(plan: _Plan, logits: Tensor, l_axes: frozenset, labels: Tensor, vocab: frozenset) -> tuple[Tensor, frozenset]:
@@ -465,3 +501,145 @@ def loss_fn(params: dict, layers: list, batch: dict, cfg, mesh, specs: dict) -> 
             count = mesh.psum(count, a)
     loss = total / (count if valid is None else torch.clamp(count, min=1.0))
     return loss.reshape(())
+
+
+# ------------------------------ serving ---------------------------------------
+
+
+def _cache_batch(cache: dict, cache_spec, mesh) -> tuple[tuple[str, ...], int]:
+    """The KV cache's batch axes (its spec's, in the spec's order) and its
+    rows: (local engines…, L, B_l, max_seq, Hkv_l, dh) holds B_l · their
+    size."""
+    batch = _axes(tuple(cache_spec)[1])
+    return batch, cache["k"].shape[len(mesh.axis_names) + 1] * int(np.prod([mesh.shape[a] for a in batch]))
+
+
+def _check_rows(plan: _Plan, batch: tuple[str, ...], b: int, rows: int, what: str) -> None:
+    size = int(np.prod([plan.mesh.shape[a] for a in batch]))
+    if b % size:
+        raise ValueError(f"{what} of {b} rows does not divide over the rules' batch axes {batch} ({size} engines): "
+                         "the KV cache's spec splits its batch over them")
+    if b != rows:
+        raise ValueError(f"{what} of {b} rows for a KV cache of {rows}")
+    if plan.batch != batch:
+        raise ValueError(f"the token rows split over {plan.batch}, the KV cache's over {batch}: lay the mesh's axes "
+                         "out in the rules' order")
+
+
+def _slot_block(mesh, batch: tuple[str, ...], rows_l: int, slot: int) -> tuple | None:
+    """Where row `slot` of a cache split over `batch` lies (`shard_tensor`'s
+    order: block slot // rows_l, its coordinates row-major over `batch`):
+    (the index of its block among this process's local engines — one slice
+    a local axis — , its row there), or None where no local engine holds
+    it."""
+    sizes = [mesh.shape[a] for a in batch]
+    if not 0 <= slot < rows_l * int(np.prod(sizes)):
+        raise IndexError(f"slot {slot} of a KV cache of {rows_l * int(np.prod(sizes))} rows")
+    index = [slice(None)] * len(mesh.axis_names)
+    for a, c in zip(batch, np.unravel_index(slot // rows_l, sizes) if batch else ()):
+        local = mesh.local_coords(a).tolist()
+        if int(c) not in local:
+            return None
+        i = local.index(int(c))
+        index[mesh.axis_index(a)] = slice(i, i + 1)
+    return tuple(index), slot % rows_l
+
+
+def _prompt_attention(cfg, cos, sin, write, ck: Tensor, cv: Tensor, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """`_causal` over a fresh prompt whose k/v `write(block, t)` puts into
+    this layer's cache blocks first; attention reads them back as the cache
+    holds them (a no-op cast where the cache is q's type)."""
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    write(ck, k)
+    write(cv, v)
+    return _flash(cfg, q, k.to(ck.dtype).to(q.dtype), v.to(cv.dtype).to(q.dtype))
+
+
+def _decode_attention(cos, sin, at: Tensor, valid: Tensor, ck: Tensor, cv: Tensor, q: Tensor, k: Tensor,
+                      v: Tensor) -> Tensor:
+    """One token a row: RoPE at the rows' positions (cos/sin (local
+    engines…, B_l, 1, half)), row b's k/v written at `at[b]` into the
+    engine's cache block, then `gqa_attention` once over every engine's
+    block folded into its batch, row b over its first `valid[b]` positions."""
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    lead = q.shape[:-3]  # (local engines…, B_l): the cache blocks' too
+    grids = torch.meshgrid(*(torch.arange(s, device=q.device) for s in lead), indexing="ij")
+    where = (*grids, at.expand(lead))
+    ck[where] = k[..., 0, :, :].to(ck.dtype)
+    cv[where] = v[..., 0, :, :].to(cv.dtype)
+    out = gqa_attention(_folded(q), _folded(ck), _folded(cv), causal=False,
+                        kv_valid_len=valid.expand(lead).reshape(-1))
+    return out.reshape(q.shape)
+
+
+def _last_logits(cfg, plan: _Plan, params: dict, x: Tensor, axes: frozenset) -> Tensor:
+    """(B, V) on every process: the head at each row's last position only."""
+    logits, _, vocab = _head(cfg, plan, params, x[..., -1:, :], axes)
+    return _whole_logits(plan, logits, vocab)[:, 0]
+
+
+def prefill(params: dict, layers: list, tokens, cache: dict, cfg, mesh, specs: dict, cache_spec,
+            slot: int | None = None) -> Tensor:
+    """Prefill from position 0: tokens (B, S) → their last positions' logits
+    (B, V), whole on every process; each engine writes its own rows' and
+    heads' k/v into its block of `cache` (laid out by `cache_spec`,
+    `transformer.kv_cache_specs`; where the KV heads do not divide over
+    "model" it is whole along it, and the gathered k/v are what every model
+    engine writes).  With `slot`, one prompt (1, S) for cache row `slot`:
+    it does not divide over the batch axes, so every engine computes it
+    (on "stacked" once, held once along them; on "process_group" on every
+    rank of the row), and only the engines whose block holds the slot write
+    it.  Attention is one `flash_attention` launch a layer over every
+    engine's heads."""
+    n = len(mesh.axis_names)
+    tokens = torch.as_tensor(tokens, device=mesh.device)
+    b, s = tokens.shape
+    if s > cache["k"].shape[n + 2]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's {cache['k'].shape[n + 2]} positions")
+    plan = _plan(cfg, mesh, specs, b)
+    batch, rows = _cache_batch(cache, cache_spec, mesh)
+    if slot is None:
+        _check_rows(plan, batch, b, rows, "a prefill")
+
+        def write(block: Tensor, t: Tensor) -> None:
+            block[..., :s, :, :] = t.to(block.dtype)
+    else:
+        if b != 1:
+            raise ValueError(f"a prefill into slot {slot} takes one prompt, not {b}")
+        where = _slot_block(mesh, batch, cache["k"].shape[n + 1], int(slot))
+
+        def write(block: Tensor, t: Tensor) -> None:
+            if where is not None:
+                index, row = where
+                block[index][..., row:row + 1, :s, :, :] = t.to(block.dtype)
+
+    x, axes = _embedded(cfg, plan, params, tokens)
+    cos, sin = rope_table(s, cfg.head_dim, theta=cfg.rope_theta, device=x.device)
+    for i, lp in enumerate(layers):
+        ck, cv = cache["k"].select(n, i), cache["v"].select(n, i)
+        x = _layer(cfg, plan, x, axes, lp, functools.partial(_prompt_attention, cfg, cos, sin, write, ck, cv))
+    return _last_logits(cfg, plan, params, x, axes)
+
+
+def decode(params: dict, layers: list, tokens, pos, cache: dict, cfg, mesh, specs: dict, cache_spec) -> Tensor:
+    """One decode step, every row at its own position: tokens (B, 1), pos
+    (B,) → logits (B, V), whole on every process.  The rows and their
+    positions are split as the cache's batch (B must divide over the batch
+    axes); each engine writes row b at pos[b] (clamped to the cache) into
+    its block and attends over it with `gqa_attention`, one call a layer
+    over every engine's block."""
+    n = len(mesh.axis_names)
+    tokens = torch.as_tensor(tokens, device=mesh.device)
+    b = tokens.shape[0]
+    plan = _plan(cfg, mesh, specs, b)
+    batch, rows = _cache_batch(cache, cache_spec, mesh)
+    _check_rows(plan, batch, b, rows, "a decode batch")
+    max_seq = cache["k"].shape[n + 2]
+    pos = _rows(plan, torch.as_tensor(pos, device=mesh.device).long().reshape(b, 1))  # (local engines…, B_l, 1)
+    at = pos.clamp(0, max_seq - 1)
+    x, axes = _embedded(cfg, plan, params, tokens)
+    cos_t, sin_t = rope_table(max_seq, cfg.head_dim, theta=cfg.rope_theta, device=x.device)
+    attend = functools.partial(_decode_attention, cos_t[at], sin_t[at], at[..., 0], pos[..., 0] + 1)
+    for i, lp in enumerate(layers):
+        x = _layer(cfg, plan, x, axes, lp, functools.partial(attend, cache["k"].select(n, i), cache["v"].select(n, i)))
+    return _last_logits(cfg, plan, params, x, axes)

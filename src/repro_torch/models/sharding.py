@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["P", "MeshRules", "axis_if_divisible", "shard_tensor", "unshard_tensor"]
+__all__ = ["P", "MeshRules", "axis_if_divisible", "laid_out_shape", "shard_tensor", "unshard_tensor"]
 
 
 class P(tuple):
@@ -151,6 +151,16 @@ def _stacked_layout(x: torch.Tensor, dims: list, mesh) -> torch.Tensor:
     y = y.permute(*front, *rest)
     lead = [mesh.shape[a] if a in where else 1 for a in mesh.axis_names]
     return y.reshape(*lead, *y.shape[len(front):])
+
+
+def laid_out_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:
+    """The shape `shard_tensor` gives a tensor of `shape` (each split dim
+    dividing over its axes): (local engines…, local block…)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    axes = [() if e is None else ((e,) if isinstance(e, str) else tuple(e)) for e in entries]
+    used = {a for ax in axes for a in ax}
+    lead = tuple(s if a in used else 1 for a, s in zip(mesh.axis_names, mesh.local_shape))
+    return lead + tuple(d // int(np.prod([mesh.shape[a] for a in ax])) for d, ax in zip(shape, axes))
 
 
 def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:

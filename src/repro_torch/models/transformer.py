@@ -24,8 +24,12 @@ What changes:
     by `shard_params` as `param_specs` says, (local engines…, [L,] block…),
     and whole params refused.  A laid-out stack's layer axis follows the
     local-engine prefix, and the split and the recompute carry it along.
-    `prefill` and the decode steps of a dense model still run whole (TP
-    serving over `kv_cache_specs`' layout is not ported yet).
+    A dense model's `prefill` and decode steps on a mesh serve the same way
+    over a KV cache laid out as `kv_cache_specs` says (`init_kv_cache(...,
+    mesh=)`: (local engines…, L, B_l, max_seq, Hkv_l, dh), stored
+    layer-major), whole params or a whole cache refused; `prefill(...,
+    slot=)` writes one prompt into one row of a cache of several, on a mesh
+    only where an engine's block holds it.
   * `TransformerConfig.rules`, `param_specs` and `kv_cache_specs` are the
     reference's, over `models.sharding`'s `P` (a mesh, where given, is read
     for its axis sizes only).
@@ -71,11 +75,12 @@ from repro_torch.models.layers import (
     rope_table,
     softmax_cross_entropy,
 )
-from repro_torch.models.sharding import P, MeshRules, axis_if_divisible, shard_tensor, unshard_tensor
+from repro_torch.models.sharding import (P, MeshRules, axis_if_divisible, laid_out_shape, shard_tensor,
+                                         unshard_tensor)
 
 __all__ = ["TransformerConfig", "layer_shapes", "init_params", "param_specs", "kv_cache_specs", "cast_params",
-           "shard_params", "unshard_params", "sharded_specs", "forward", "loss_fn", "init_kv_cache", "decode_step",
-           "decode_step_batched_pos", "prefill"]
+           "shard_params", "unshard_params", "sharded_specs", "forward", "loss_fn", "kv_cache_shape", "init_kv_cache",
+           "unshard_kv_cache", "decode_step", "decode_step_batched_pos", "prefill"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +227,13 @@ def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | 
     }
 
 
+def _dense_mesh(cfg: TransformerConfig, mesh) -> bool:
+    """Whether a dense model runs on `mesh` (`models.dense_mesh`, every leaf
+    and the KV cache laid out); an MoE model hands the mesh to its MoE
+    blocks only and keeps the rest, the cache too, whole."""
+    return mesh is not None and cfg.moe is None
+
+
 def _ep(cfg: TransformerConfig) -> bool:
     return cfg.moe is not None and cfg.moe.impl == "ep_shardmap"
 
@@ -291,15 +303,26 @@ def _laid_out_specs(params: dict, cfg: TransformerConfig, mesh) -> dict:
     leaves += [(("layers", k), params["layers"][k], (cfg.n_layers, *s), specs["layers"][k])
                for k, s in layer_shapes(cfg).items()]
     for path, v, shape, spec in leaves:
-        entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
-        axes = [() if e is None else ((e,) if isinstance(e, str) else tuple(e)) for e in entries]
-        used = {a for ax in axes for a in ax}
-        want = tuple(s if a in used else 1 for a, s in zip(mesh.axis_names, mesh.local_shape))
-        want += tuple(d // int(np.prod([mesh.shape[a] for a in ax])) for d, ax in zip(shape, axes))
+        want = laid_out_shape(shape, spec, mesh)
         if tuple(v.shape) != want:
             raise ValueError(f"a dense model on a mesh takes its params laid out on it (transformer.shard_params): "
                              f"{'/'.join(path)} is {tuple(v.shape)}, want {want}")
     return specs
+
+
+def _laid_out_cache_spec(cache: dict, cfg: TransformerConfig, mesh):
+    """`kv_cache_specs(cfg, mesh)`'s spec; raises unless `cache` is laid out
+    on `mesh` as `init_kv_cache(..., mesh=)` lays it (of any batch and
+    length)."""
+    spec = kv_cache_specs(cfg, mesh)["k"]
+    n = len(mesh.axis_names)
+    got = tuple(cache["k"].shape)
+    if len(got) == n + 5 and tuple(cache["v"].shape) == got:
+        want = laid_out_shape((cfg.n_layers, got[n + 1], got[n + 2], cfg.n_kv_heads, cfg.head_dim), spec, mesh)
+        if got[:n + 1] + got[n + 3:] == want[:n + 1] + want[n + 3:]:
+            return spec
+    raise ValueError(f"a dense model on a mesh takes its KV cache laid out on it (init_kv_cache(..., mesh=)): k is "
+                     f"{got}, v {tuple(cache['v'].shape)}, by the spec {spec}")
 
 
 # ------------------------------ forward -----------------------------------
@@ -388,7 +411,7 @@ def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch
     layer with impl="ep_shardmap" runs on (the rest of an MoE model ignores
     it); a dense model's Megatron TP / FSDP mesh (`models.dense_mesh`: its
     params laid out by `shard_params`, the logits whole on every process)."""
-    if mesh is not None and cfg.moe is None:
+    if _dense_mesh(cfg, mesh):
         specs = _laid_out_specs(params, cfg, mesh)
         return dense_mesh.forward(params, _layers(params, cfg.n_layers), tokens, cfg, mesh, specs)
     x = _embed(params, tokens, cfg)
@@ -407,7 +430,7 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> 
     """The mean token cross-entropy in float32 (`valid`, where given, masks
     tokens); on a dense model's mesh the vocab-parallel one of
     `models.dense_mesh`, the same on every process."""
-    if mesh is not None and cfg.moe is None:
+    if _dense_mesh(cfg, mesh):
         specs = _laid_out_specs(params, cfg, mesh)
         return dense_mesh.loss_fn(params, _layers(params, cfg.n_layers), batch, cfg, mesh, specs)
     logits = forward(params, batch["tokens"], cfg, mesh=mesh)
@@ -420,29 +443,87 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> 
 # ------------------------------ serving -----------------------------------
 
 
+def kv_cache_shape(cfg: TransformerConfig, batch: int, max_seq: int, mesh=None) -> tuple[int, ...]:
+    """The KV cache's (L, batch, max_seq, Hkv, dh); for a dense model on
+    `mesh`, laid out as `kv_cache_specs` says: (local engines…, L, B_l,
+    max_seq, Hkv_l, dh).  Raises where `batch` does not divide over the
+    rules' batch axes (the spec splits it over them, as the reference's)."""
+    whole = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    if not _dense_mesh(cfg, mesh):
+        return whole
+    spec = kv_cache_specs(cfg, mesh)["k"]
+    batch_axes = tuple(spec)[1]
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    if not set(batch_axes) <= set(mesh.axis_names):
+        raise ValueError(f"the rules' batch axes {batch_axes} are not all in the mesh's {mesh.axis_names}")
+    size = int(np.prod([mesh.shape[a] for a in batch_axes]))
+    if batch % size:
+        raise ValueError(f"a KV cache of {batch} rows does not divide over the rules' batch axes {batch_axes} "
+                         f"({size} engines on the mesh {dict(mesh.shape)})")
+    return laid_out_shape(whole, spec, mesh)
+
+
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,
-                  device: str | torch.device | None = None) -> dict:
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+                  device: str | torch.device | None = None, mesh=None) -> dict:
+    """A zero cache {"k", "v"} of `kv_cache_shape`; on a mesh stored
+    layer-major, so that a layer's block is one contiguous tensor over the
+    local engines."""
+    shape = kv_cache_shape(cfg, batch, max_seq, mesh)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    n = len(shape) - 5
+
+    def zeros():
+        return torch.zeros((shape[n], *shape[:n], *shape[n + 1:]), dtype=dtype, device=dev).movedim(0, n)
+
+    return {"k": zeros(), "v": zeros()}
 
 
-def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig, *, mesh=None):
+def unshard_kv_cache(cache: dict, cfg: TransformerConfig, mesh) -> dict:
+    """The whole cache (L, B, max_seq, Hkv, dh) of one laid out by
+    `init_kv_cache(..., mesh=)` (on "process_group" gathered from every
+    rank); with `cfg.moe`, `cache` itself."""
+    if not _dense_mesh(cfg, mesh):
+        return cache
+    specs = kv_cache_specs(cfg, mesh)
+    return {k: unshard_tensor(v, specs[k], mesh) for k, v in cache.items()}
+
+
+def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig, *, mesh=None, slot: int | None = None):
     """Prefill the cache with a full prompt from position 0 (written in
-    place); returns (last_logits (B, V), cache)."""
+    place); returns (last_logits (B, V), cache).  `slot`: one prompt (1, P)
+    written into row `slot` of a cache of several rows (the serving
+    engine's admission).  A dense model on `mesh` takes its params laid out
+    by `shard_params` and its cache by `init_kv_cache(..., mesh=)`
+    (`models.dense_mesh.prefill`)."""
+    if _dense_mesh(cfg, mesh):
+        specs = _laid_out_specs(params, cfg, mesh)
+        spec = _laid_out_cache_spec(cache, cfg, mesh)
+        return dense_mesh.prefill(params, _layers(params, cfg.n_layers), tokens, cache, cfg, mesh, specs, spec,
+                                  slot), cache
+    rows = cache if slot is None else {k: v[:, slot:slot + 1] for k, v in cache.items()}  # views: written in place
     x = _embed(params, tokens, cfg)
     s = x.shape[1]
-    if s > cache["k"].shape[2]:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache's {cache['k'].shape[2]} positions")
+    if s > rows["k"].shape[2]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's {rows['k'].shape[2]} positions")
     cos, sin = rope_table(s, cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     for i in range(cfg.n_layers):
-        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (cache["k"][i], cache["v"][i]), mesh)
+        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (rows["k"][i], rows["v"][i]), mesh)
     return _head(params, x[:, -1], cfg), cache
+
+
+def _mesh_decode(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, mesh):
+    specs = _laid_out_specs(params, cfg, mesh)
+    spec = _laid_out_cache_spec(cache, cfg, mesh)
+    return dense_mesh.decode(params, _layers(params, cfg.n_layers), tokens, pos, cache, cfg, mesh, specs,
+                             spec), cache
 
 
 def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """One decode step: tokens (B, 1) at absolute position `pos` (an int, the
-    same for every row).  Returns (logits (B, V), cache)."""
+    same for every row).  Returns (logits (B, V), cache).  A dense model on
+    `mesh`: `decode_step_batched_pos` with every row at `pos`."""
+    if _dense_mesh(cfg, mesh):
+        return _mesh_decode(params, cache, torch.full((len(tokens),), int(pos), dtype=torch.long), tokens, cfg, mesh)
     x = _embed(params, tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]
@@ -467,7 +548,11 @@ def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, 
 
 def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """Continuous-batching decode: every slot at its own position.
-    pos: (B,) absolute write positions; tokens: (B, 1)."""
+    pos: (B,) absolute write positions; tokens: (B, 1).  A dense model on
+    `mesh` takes its params and cache laid out (`models.dense_mesh.decode`:
+    the rows split as the cache's batch, which B must divide over)."""
+    if _dense_mesh(cfg, mesh):
+        return _mesh_decode(params, cache, pos, tokens, cfg, mesh)
     x = _embed(params, tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]

@@ -1,8 +1,9 @@
 """The port's engine mesh over gloo on the CPU, for `tests/test_torch_distributed.py`,
 `tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`,
-`tests/test_torch_recsys_psum.py` and their training counterparts
-(`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py` and
-`tests/test_torch_transformer_tp.py`, the `*_train` jobs:
+`tests/test_torch_recsys_psum.py`, `tests/test_torch_transformer_tp_serve.py`
+(the `dense_tp_serve` job: logits, and each rank's KV cache block) and their
+training counterparts (`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`
+and `tests/test_torch_transformer_tp.py`, the `*_train` jobs:
 every gradient and the params after one AdamW step, by leaf path; a rank
 holds the whole of a replicated leaf and its own block of a laid-out one,
 `engine_block`): `run_gloo(job, tmp_path)` spawns one
@@ -306,10 +307,49 @@ def dense_tp_train_runs(mesh) -> dict:
     return out | {"engines": mesh.local_engines}
 
 
+def dense_tp_serve_runs(mesh) -> dict:
+    """Serving `dense_tp_config` with its params and KV cache laid out
+    (tp_sp, tp_sp with one KV head: the head-gather path and a cache whole
+    along "model", fsdp): a prefill of 8 rows, a `decode_step`, two
+    `decode_step_batched_pos` steps with the rows at their own positions,
+    and a one-slot prefill into slot 5 of a fresh cache (one data row's
+    engines hold it): the logits, whole, and the local cache blocks.  Every
+    rank's products take two rows or more where stacked takes more (fsdp:
+    2 of 8 a rank): a CPU product of one row takes BLAS's matrix-vector
+    path, which rounds otherwise than the same row in a product of
+    several."""
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(19)
+    out = {}
+    for name, strategy, kw in (("tp_sp", "tp_sp", {}), ("tp_sp_gather", "tp_sp", {"n_kv_heads": 1}),
+                               ("fsdp", "fsdp", {})):
+        cfg = dense_tp_config(strategy, **kw)
+        params = tfm.shard_params(tfm.init_params(cfg, 2, device="cpu"), cfg, mesh)
+        cache = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 9)))
+        offs = torch.from_numpy(rng.integers(0, 3, 8))
+        steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))) for _ in range(3)]
+        with torch.no_grad():
+            run = {"prefill": tfm.prefill(params, toks, cache, cfg, mesh=mesh)[0],
+                   "decode": tfm.decode_step(params, cache, 9, steps[0], cfg, mesh=mesh)[0]}
+            for i in range(2):
+                run[f"batched{i}"] = tfm.decode_step_batched_pos(params, cache, 10 + offs + i, steps[i + 1], cfg,
+                                                                 mesh=mesh)[0]
+            run["cache_k"], run["cache_v"] = cache["k"], cache["v"]
+            slot = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+            run["slot_logits"] = tfm.prefill(params, toks[1:2, :7], slot, cfg, mesh=mesh, slot=5)[0]
+            run["slot_cache_k"] = slot["k"]
+        out.update({f"{name}/{k}": v.numpy() for k, v in run.items()})
+    return out | {"engines": mesh.local_engines}
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
         "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
-        "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs}
-JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train")
+        "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs,
+        "dense_tp_serve": dense_tp_serve_runs}
+JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train",
+           "dense_tp_serve")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):
