@@ -84,19 +84,15 @@ before and read just after (the paper pipeline once more through its CLI):
   steps (the shared expert's and its gate's backward); its kernels are
   `flash_attention` (twice a layer a step) and `flash_attention_bwd`
   (once a layer a step, at group 1 and dh 128);
-* the model paths on a 2-D engine mesh: 16 engines stacked on the card over
-  ("data", "model") = (2, 8) (`graph.distributed.make_mesh`): olmoe-1b-7b
-  at its published width and depth and qwen2-moe-a2.7b over 4 layers
-  served through `build_engine(..., mesh=)` with expert parallelism
-  (`impl="ep_shardmap"`: two exchanges over "model" a layer, 64 experts
-  padded from qwen's 60), beside the local path on the same weights; one
-  olmoe layer on `launch.mesh.make_production_mesh()` (256 engines); the
-  "process_group" backend over NCCL at world size 1; dcn-v2 at its
-  published size with `lookup_impl="psum_model"` (its tables row-sharded
-  over "model" by `models.sharding.shard_tensor`): `serve_bulk` and 5
-  `train_batch` steps; its kernels are `flash_attention` (every EP prefill
-  layer) and `embedding_bag` (one launch a data row a lookup over the
-  sharded slab);
+* the model paths on a 2-D engine mesh: one olmoe layer with expert
+  parallelism (`impl="ep_shardmap"`: two exchanges over "model") on
+  `launch.mesh.make_production_mesh()` (256 engines); the "process_group"
+  backend over NCCL at world size 1; dcn-v2 at its published size with
+  `lookup_impl="psum_model"` on ("data", "model") = (2, 8) stacked on the
+  card (`graph.distributed.make_mesh`; its tables row-sharded over "model"
+  by `models.sharding.shard_tensor`): `serve_bulk` and 5 `train_batch`
+  steps; its kernel is `embedding_bag` (one launch a data row a lookup over
+  the sharded slab);
 * training through the engine mesh's exchanges: gin-tu (5 × 64) at
   `ogb_products`' feature width trained by halo exchange over the 16 stacked
   engines on amazon under `DeviceMapper((4, 4))`'s permutation (5 steps at
@@ -126,7 +122,19 @@ before and read just after (the paper pipeline once more through its CLI):
   float32 under "tp_sp" and "fsdp" 16 one-slot prefills of 384-512 tokens and
   8 decode steps at the rows' own positions against one device's; both
   strategies over NCCL at world size 1; its kernel is `flash_attention` (once
-  a layer a prefill, every engine's heads folded into one launch).
+  a layer a prefill, every engine's heads folded into one launch);
+* serving the MoE transformer under tp_sp with Megatron TP attention and
+  expert-parallel experts in one layer (`models.dense_mesh` with
+  `moe.moe_ep_rows` as its FFN, every leaf and the KV cache laid out):
+  olmoe-1b-7b at its published width and depth and qwen2-moe-a2.7b over 4
+  layers (60 experts padded to 64, the shared expert under TP) through
+  `launch.serve.build_engine(..., mesh=)` on (2, 8) with the serving path's
+  traffic, beside one device's impl="local" engine on the same bf16
+  weights; in float32 at capacity factor E/k 16 one-slot prefills and 8
+  decode steps against one device's; the drop path at 1.25 against the
+  plain per-engine loop; NCCL at world size 1; its kernel is
+  `flash_attention` (once a layer a prefill, every model engine's 2 of 16
+  heads folded into one launch).
 
 Phases, one JSON line each:
 
@@ -238,17 +246,8 @@ Phases, one JSON line each:
              `expert_device_permutation` (EP 8 on a 2 × 4 torus: hop
              reduction and load balance a layer); qwen2-moe-a2.7b's
              losses, launches (the backward's on the same route) and peak
-  mesh_models  the model paths on a 2-D mesh: olmoe-1b-7b and qwen2-moe
-             drained with EP and with the local path (prefill tokens/s,
-             decode ms a step, attention launches), two EP prefills
-             bit-equal, the longest prompt's Cs, Ce, share of slots dropped
-             in each stage by layer and all-to-all bytes a layer, the padded
-             experts' slots (0), a decode step dropping nothing, a float32
-             prefill of 2,048 tokens EP against local within 2e-3 at
-             capacity factor E/k (nothing can drop), olmoe's first two
-             float32 layers at 1.25 (slots drop in both stages) against the
-             plain per-engine loop `moe_ep_loop_ref` (the same slots kept,
-             outputs within 1e-4); one olmoe layer on the production mesh (Cs 8) against local; dcn-v2
+  mesh_models  the model paths on a 2-D mesh: one olmoe layer with EP on
+             the production mesh (Cs 8) against local; dcn-v2
              `serve_bulk` logits of `psum_model` bit-equal to the gather's,
              one bag launch a data row a lookup, 5 training losses within 1e-6 and the
              unsharded table gradient within 1e-6 of its largest entry, the
@@ -292,6 +291,22 @@ Phases, one JSON line each:
              and decode over NCCL at world size 1 bit-equal to stacked; the
              attention kernel at the per-engine prefill shape against its
              plain version, bound and SDPA
+  mesh_moe_serve  MoE serving under TP attention + EP experts on (2, 8):
+             olmoe-1b-7b and qwen2-moe drained through `build_engine(...,
+             mesh=)` and on one device (impl="local") in turns (every
+             request drained, L × requests attention launches a drain,
+             finite logits, prefill tokens/s, decode ms a step, peak memory,
+             the dropped share of routed slots, two prefills bit-equal with
+             their Cs, Ce and dropped shares by layer, a decode step
+             dropping nothing, the bytes of each exchange a prefill and a
+             decode step); float32 logits and cache at capacity factor E/k
+             within 2e-3 of one device's, greedy tokens equal, two runs
+             bit-equal; olmoe's layers 0-1 at 1.25 on a 2,047-token
+             one-slot prompt against `moe_ep_loop_ref` (the same slots,
+             drops in both stages, within 1e-4); a prefill and decode steps
+             over NCCL at world size 1 bit-equal to stacked; the attention
+             kernel at the per-engine prefill shape against its plain
+             version, bound and SDPA
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -299,13 +314,14 @@ then the contract lines: one `{"kernels": [...]}` object (ell_spmm with its
 `launches_distributed` and `distributed` call sites,
 flash_attention, flash_attention_bwd, embedding_bag; the attention rows
 with their `moe_train` launches, the backward's with `moe_train_shape`,
-the forward's with `launches_mesh_models`, the bag's with its
+the forward's with `launches_mesh_moe_serve`, the bag's with its
 `psum_model` call site; every kernel with its `launches_mesh_train`, and
 ell_spmm with its `halo_transpose` call site; the attention rows with their
 `launches_mesh_dense`, and `flash_attention.tp`: the forward and the
 backward at the tp_sp per-engine shape; the forward's
 `launches_mesh_dense_serve`, and `flash_attention.tp_prefill`: the forward
-at the tp_sp per-engine prefill shape),
+at the tp_sp per-engine prefill shape; `flash_attention.tp_ep_prefill`: the
+forward at olmoe's per-engine prefill shape under TP + EP),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -2137,8 +2153,8 @@ def drain_timed(engine, prompts, new_tokens: int, route_logs: dict | None = None
     on the host clock (synchronised on both sides) and its logits checked
     finite; `flash_attention.launches` counts from 0 over the drain.  With
     `route_logs` ({"prefill": [], "decode": []}) each call appends the list
-    of its MoE routings (`moe_block.route_log`) there.  Returns (done,
-    stats, wall_s, launches)."""
+    of its MoE routings (`moe_block.route_log`, and `ep_log` on a mesh)
+    there.  Returns (done, stats, wall_s, launches)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.moe import moe_block
     from repro_torch.serve.engine import Request
@@ -2150,14 +2166,14 @@ def drain_timed(engine, prompts, new_tokens: int, route_logs: dict | None = None
     def timed(kind, fn, *args):
         if route_logs is not None:
             route_logs[kind].append([])
-            moe_block.route_log = route_logs[kind][-1]
+            moe_block.route_log = moe_block.ep_log = route_logs[kind][-1]
         torch.cuda.synchronize()
         t = time.perf_counter()
         try:
             out = fn(*args)
             torch.cuda.synchronize()
         finally:
-            moe_block.route_log = None
+            moe_block.route_log = moe_block.ep_log = None
         st[f"{kind}_s"] += time.perf_counter() - t
         return out
 
@@ -3637,18 +3653,20 @@ def phase_moe_train(device: torch.device, seed: int, smi: str | None, timer: Tim
 
 # --------------------------------------------------------------------------- the model paths on a 2-D mesh
 
-# olmoe-1b-7b at its published width and depth and qwen2-moe-a2.7b (4 of 24 layers) served with expert
-# parallelism (impl="ep_shardmap") on 16 engines stacked on the card over ("data", "model") = (2, 8), the
-# moe phase's traffic; one olmoe layer on the production mesh (16, 16); dcn-v2 at its published size with
-# the psum_model lookup on the same (2, 8) mesh; NCCL at world size 1 on (1, 1)
+# the mesh: 16 engines stacked on the card over ("data", "model") = (2, 8); one olmoe layer with expert
+# parallelism (impl="ep_shardmap") on the production mesh (16, 16); dcn-v2 at its published size with the
+# psum_model lookup on (2, 8); NCCL at world size 1 on (1, 1)
 MESH_SHAPE, MESH_AXES = (2, 8), ("data", "model")
 MESH_TURNS = ("local", "ep", "ep", "local")  # the two routes timed in turns on the same card
-# the float32 prefill, EP against local, is held at capacity_factor E/k, where no expert and no engine can
-# overflow (at 4.0 the local path drops slots of this prompt, so the two would keep different slots)
-MESH_F32_PROMPT = 2048
-MESH_F32_TOL = 2e-3  # float32 logits, EP against local, where neither drops a slot
-# the drop path at the config's capacity_factor: these float32 layers, on their inputs in a float32 EP prefill
-# of the same prompt, against the plain per-engine loop (moe_ep_loop_ref): the same slots kept, outputs within
+# float32 logits, EP against local, held at capacity_factor E/k, where no expert and no engine can overflow (at
+# 4.0 the local path drops slots of a long prompt, so the two would keep different slots)
+MESH_F32_TOL = 2e-3
+# a float32 MoE route on the mesh may pick other experts than one device's only where the one-device router's k-th
+# and (k+1)-th logits lie closer than ROUTER_NEAR_TIE (rounding orders them either way), at a position's first such
+# layer, and at no more than ROUTER_FLIP_SHARE of the routings
+ROUTER_NEAR_TIE, ROUTER_FLIP_SHARE = 1e-4, 1e-3
+# the drop path at the config's capacity_factor: these float32 layers, on their inputs in a float32 prefill, against
+# the plain per-engine loop (moe_ep_loop_ref): the same slots kept, outputs within
 MESH_LOOP_LAYERS, MESH_LOOP_TOL = (0, 1), dict(rtol=1e-4, atol=1e-4)
 MESH_PROD_TOKENS = 512  # n_l = 2 on 256 engines: Cs at its floor of 8, no slot can drop in EP
 MESH_PROD_TOL = dict(rtol=1e-4, atol=1e-4)  # one float32 layer: the expert products over other row counts
@@ -3726,153 +3744,6 @@ def local_dropped(fn) -> tuple:
     finally:
         moe_block.route_log = None
     return out, sum(int((c - C).clamp_min(0).sum()) for C, c in log)
-
-
-def mesh_serve(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, mesh, *,
-               f32_check: bool) -> tuple[dict, dict | None]:
-    """One MoE model served through `build_engine` twice on the same bf16
-    weights: impl="local", then impl="ep_shardmap" on `mesh` (each drained
-    with the prompts, timed); for EP the attention launches, the routes of
-    the longest prompt's prefill and of a decode step, and two prefills
-    bit-equal; with `f32_check` a float32 prefill of one prompt, EP against
-    local at capacity_factor E/k, and the layers MESH_LOOP_LAYERS at the
-    config's against the plain per-engine loop.  Returns (the model's entry,
-    layer 0's float32 weights or None)."""
-    from repro_torch.launch.serve import build_engine
-    from repro_torch.models import moe as moe_lib
-    from repro_torch.models import transformer as tfm
-
-    m, L = cfg.moe, cfg.n_layers
-    ep = mesh.shape[m.ep_axis]
-    ep_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"))
-    t0 = time.perf_counter()
-    params32 = tfm.init_params(cfg, seed, device=device)
-    params = tfm.cast_params(params32, cfg)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    ep_params = tfm.shard_params(params, ep_cfg, mesh)  # the expert stacks laid out on the mesh, as EP takes them
-    runs = {"local": [], "ep": []}
-    for name in MESH_TURNS:
-        c = ep_cfg if name == "ep" else cfg
-        engine = build_engine(c, ep_params if name == "ep" else params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
-                              device=device, mesh=mesh if name == "ep" else None)
-        engine.cache, _ = engine.prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
-        _, engine.cache = engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
-                                        torch.zeros(SERVE_SLOTS, dtype=torch.long))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        done, st, wall_s, launches = drain_timed(engine, prompts, new_tokens)
-        check(len(done) == len(prompts) and st["finite"], f"{cfg.name} {name}: {len(done)} drained, finite "
-              f"{st['finite']}")
-        check(launches == L * len(prompts), f"{cfg.name} {name}: flash_attention launched {launches} times, "
-              f"want {L} a prefill × {len(prompts)}")
-        runs[name].append({"wall_s": wall_s, "prefill_tokens": st["prefill_tokens"],
-                      "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
-                      "decode_steps": st["decode_steps"], "decode_ms_a_step": st["decode_s"] / st["decode_steps"] * 1e3,
-                      "decode_tok_s": st["decode_tokens"] / st["decode_s"], "flash_attention_launches": launches,
-                      "new_tokens": [len(r.out_tokens) for r in sorted(done, key=lambda r: r.uid)],
-                           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
-        if name == "ep" and len(runs["ep"]) == 1:
-            longest = max(prompts, key=len)
-            toks = torch.from_numpy(longest[None, :].astype(np.int64)).to(device)
-
-            def one_prefill():
-                cache = tfm.init_kv_cache(c, 1, toks.shape[1], dtype=torch.float32, device=device)
-                return tfm.prefill(ep_params, toks, cache, c, mesh=mesh)[0], cache
-
-            (la, ca), log = ep_logged(one_prefill)
-            lb, cb = one_prefill()
-            torch.cuda.synchronize()
-            bit_equal = bool(torch.equal(la, lb) and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]))
-            check(bit_equal, f"{cfg.name}: two EP prefills of one prompt differ")
-            prefill_routes = ep_stats(log, m, ep, toks.shape[1], cfg.d_model, 2)
-            pos = torch.from_numpy(engine.pos.astype(np.int64)).to(device)
-            _, dlog = ep_logged(lambda: engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long,
-                                                                                  device=device), pos))
-            decode_routes = ep_stats(dlog, m, ep, SERVE_SLOTS, cfg.d_model, 2)
-            check(prefill_routes["padded_expert_slots"] == 0 and decode_routes["padded_expert_slots"] == 0,
-                  f"{cfg.name}: a padded expert got a slot")
-            check(decode_routes["stage1_dropped_share_mean"] == 0 and decode_routes["stage2_dropped_share_mean"] == 0,
-                  f"{cfg.name}: an EP decode step dropped a slot")
-            ep_checks = {"prefills_bit_equal": bit_equal, "routes_longest_prefill": prefill_routes,
-                         "routes_decode_step": {k: decode_routes[k] for k in (
-                             "tokens", "Cs", "Ce", "stage1_dropped_share_mean", "stage2_dropped_share_mean",
-                             "padded_expert_slots", "all_to_all_bytes_a_layer")}}
-            del la, lb, ca, cb, one_prefill
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
-    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "experts": m.num_experts, "top_k": m.top_k,
-           "d_ff_expert": m.d_ff_expert, "d_ff_shared": m.d_ff_shared, "capacity_factor": m.capacity_factor,
-           "padded_experts": m.padded_experts(ep), "experts_an_engine": m.padded_experts(ep) // ep,
-           "mesh": dict(mesh.shape), "engines": mesh.num_engines, "backend": mesh.backend,
-           "activations": "bfloat16", "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
-           "setup_s": setup_s, "turns": list(MESH_TURNS), "local": {"runs": runs["local"]},
-           "ep": {"runs": runs["ep"], **ep_checks},
-           "prefill_tok_s": {k: float(np.mean([r["prefill_tok_s"] for r in v])) for k, v in runs.items()},
-           "decode_ms_a_step": {k: float(np.mean([r["decode_ms_a_step"] for r in v])) for k, v in runs.items()}}
-    out["ep_vs_local_prefill_tok_s"] = out["prefill_tok_s"]["ep"] / out["prefill_tok_s"]["local"]
-    out["ep_vs_local_decode_ms"] = out["decode_ms_a_step"]["ep"] / out["decode_ms_a_step"]["local"]
-    out["flash_attention_launches_a_drain"] = {k: v[0]["flash_attention_launches"] for k, v in runs.items()}
-    del params, ep_params
-    gc.collect()
-    torch.cuda.empty_cache()
-    layer0 = None
-    if f32_check:
-        toks = torch.from_numpy(prompts[0][None, :MESH_F32_PROMPT].astype(np.int64)).to(device)
-        check(toks.shape[1] == MESH_F32_PROMPT, "the float32 prompt is shorter than asked")
-
-        def pre(c):
-            cache = tfm.init_kv_cache(c, 1, MESH_F32_PROMPT, dtype=torch.float32, device=device)
-            return tfm.prefill(params32, toks, cache, c, mesh=mesh)[0]
-
-        def f32_cfg(cf, impl):
-            return dataclasses.replace(cfg, dtype=torch.float32, moe=dataclasses.replace(m, capacity_factor=cf,
-                                                                                         impl=impl))
-
-        cf = m.num_experts / m.top_k
-        want, local_drop = local_dropped(lambda: pre(f32_cfg(cf, "local")))
-        layer0 = {k: v.clone() for k, v in tfm._layer(params32, 0).items()}
-        params32 = tfm.shard_params(params32, ep_cfg, mesh)  # from here EP's: the whole stacks go
-        got, log = ep_logged(lambda: pre(f32_cfg(cf, "ep_shardmap")))
-        routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
-        err = float((got - want).abs().max())
-        ep_drop = sum(int((r.stage1 - r.Cs).clamp_min(0).sum()) + int(
-            (r.stage2[:, :-1] - r.Ce).clamp_min(0).sum()) for r in log)
-        check(local_drop == 0 and ep_drop == 0, f"{cfg.name}: slots dropped at capacity_factor {cf}: local "
-              f"{local_drop}, EP {ep_drop}")
-        check(err <= MESH_F32_TOL, f"{cfg.name}: float32 EP vs local at capacity_factor {cf}: {err}")
-        out["float32_prefill_vs_local"] = {"tokens": MESH_F32_PROMPT, "capacity_factor": cf, "max_abs_err": err,
-                                           "logits_max_abs": float(want.abs().max()), "tolerance": MESH_F32_TOL,
-                                           "Cs": routes["Cs"], "Ce": routes["Ce"]}
-        del want, got
-        # the drop path at the config's capacity factor, against the plain per-engine loop
-        e125 = f32_cfg(m.capacity_factor, "ep_shardmap")
-        seen = [s for s in moe_layer_inputs(lambda: pre(e125), layers=MESH_LOOP_LAYERS) if s is not None]
-        check(len(seen) == len(MESH_LOOP_LAYERS), f"{len(seen)} MoE inputs caught, want {MESH_LOOP_LAYERS}")
-        loop = []
-        for li, (lp, x) in zip(MESH_LOOP_LAYERS, seen):
-            got, log = ep_logged(lambda: moe_lib.moe_block(e125.moe, lp, x, mesh=mesh))
-            plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, moe_lib.unshard_experts(m, lp, mesh), x, mesh)
-            (r,) = log
-            same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
-            routes = ep_stats(log, m, ep, MESH_F32_PROMPT, cfg.d_model, 4)
-            err = float((got - plain).abs().max())
-            loop.append({"layer": li, "max_abs_err": err, "out_max_abs": float(plain.abs().max()), "same_slots": same,
-                         "Cs": r.Cs, "Ce": r.Ce, "stage1_dropped_share": routes["stage1_dropped_share_mean"],
-                         "stage2_dropped_share": routes["stage2_dropped_share_mean"]})
-            check(same, f"{cfg.name} layer {li}: EP and the plain loop keep other slots")
-            check(loop[-1]["stage1_dropped_share"] > 0 and loop[-1]["stage2_dropped_share"] > 0,
-                  f"{cfg.name} layer {li}: no slot dropped in a stage at capacity_factor {m.capacity_factor}: "
-                  f"{loop[-1]}")
-            check(torch.allclose(got, plain, **MESH_LOOP_TOL), f"{cfg.name} layer {li}: EP vs the plain loop: {err}")
-        out["float32_layers_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "tokens": MESH_F32_PROMPT,
-                                               "tolerance": MESH_LOOP_TOL, "layers": loop}
-        del seen, got, plain
-    del params32
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out, layer0
 
 
 def production_layer(device: torch.device, m, lp: dict, timer: Timer, seed: int) -> tuple[dict, torch.Tensor]:
@@ -4119,32 +3990,22 @@ def nccl_world_one_models(device: torch.device, m, lp: dict, x: torch.Tensor, dc
 
 
 def phase_mesh_models(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
-    """The model paths on a 2-D engine mesh: olmoe-1b-7b and qwen2-moe-a2.7b
-    served with EP on (2, 8), one olmoe layer on the production mesh, dcn-v2's
-    psum_model lookup on (2, 8), NCCL at world size 1.  Returns (the
-    `mesh_models` line, the bag's new call site)."""
+    """The model paths on a 2-D engine mesh: one olmoe layer with EP on the
+    production mesh, dcn-v2's psum_model lookup on (2, 8), NCCL at world
+    size 1 (olmoe and qwen2-moe served on (2, 8): `phase_mesh_moe_serve`).
+    Returns (the `mesh_models` line, the bag's new call site)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.graph.distributed import make_mesh
+    from repro_torch.models import transformer as tfm
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
     mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
     check(mesh.num_engines == 16 and mesh.backend == "stacked" and mesh.device.type == "cuda", "the (2, 8) mesh")
     cfg = get_arch(MOE_ARCH).model_config()
-    rng = np.random.default_rng(seed)
-    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)  # the moe phase's traffic
-    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
     t0 = time.perf_counter()
-    olmoe, lp0 = mesh_serve(cfg, device, seed, prompts, SERVE_NEW, mesh, f32_check=True)
-    olmoe["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    lp0 = tfm._layer(tfm.init_params(dataclasses.replace(cfg, n_layers=1), seed, device=device), 0)
     prod, x = production_layer(device, cfg.moe, lp0, timer, seed)
     prod["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_LAYERS)
-    check(wide.moe.d_ff_shared > 0 and wide.moe.padded_experts(8) == 64, "qwen2-moe: a shared expert, 60 → 64")
-    wide_prompt = [rng.integers(2, wide.vocab, size=MOE_WIDE_PROMPT).astype(np.int32)]
-    qwen, _ = mesh_serve(wide, device, seed, wide_prompt, MOE_WIDE_STEPS + 1, mesh, f32_check=False)
-    qwen["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dcn, site, keep = mesh_recsys(device, seed, timer, mesh)
     dcn["seconds"] = time.perf_counter() - t0
@@ -4152,14 +4013,10 @@ def phase_mesh_models(device: torch.device, seed: int, smi: str | None, timer: T
     del lp0, x, keep
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"olmoe": olmoe | {"cuts": []},
-           "qwen": qwen | {"cuts": [f"{MOE_WIDE_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, as the moe "
-                                    "phase"]},
-           "production_mesh_layer": prod, "dcn": dcn, "nccl": nccl,
-           "weights": "random, from a seeded torch.Generator on the card (the moe and recsys phases' seeds: "
-                      "the same weights)",
-           "timing": "serving: host clock around each prefill / decode call, synchronised on both sides; layer "
-                     "and lookup ms: CUDA-graph replays (device time), serve_bulk ms calls back to back",
+    out = {"production_mesh_layer": prod, "dcn": dcn, "nccl": nccl,
+           "weights": "random, from a seeded torch.Generator on the card (the production layer: a one-layer "
+                      "olmoe's; dcn-v2: the recsys phase's seed)",
+           "timing": "layer and lookup ms: CUDA-graph replays (device time), serve_bulk ms calls back to back",
            "card": smi}
     say("mesh_models", **out)
     return out, site
@@ -4381,6 +4238,7 @@ def ep_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
     from repro_torch.data.pipeline import TokenPipeline, to_device
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import P, shard_tensor, unshard_tensor
     from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_unflatten
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
@@ -4452,28 +4310,32 @@ def ep_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
                                      "max_rel_err": max(rel.values()), "rel_err_by_leaf": rel,
                                      "tolerance_rel": MESH_GRAD_REL}
     del want, got
-    # the drop path at the config's capacity factor: each layer's EP block against the plain per-engine loop
+    # the drop path at the config's capacity factor: each layer's composed EP block (each engine's own tokens of the
+    # rows it holds) against the plain per-engine loop on the whole batch
     e125 = dataclasses.replace(f32, moe=dataclasses.replace(m, impl="ep_shardmap"))
-    with torch.no_grad():
-        seen = moe_layer_inputs(lambda: tfm.forward(sharded, batches[0]["tokens"], e125, mesh=mesh),
-                                layers=tuple(range(EP_F32_LAYERS)))
+    with torch.no_grad(), ep_rows_seen(tuple(range(EP_F32_LAYERS))) as seen:
+        tfm.forward(sharded, batches[0]["tokens"], e125, mesh=mesh)
+        torch.cuda.synchronize()
     keys = ["router", *moe_lib.EXPERT_KEYS]
-    dy = torch.randn(seen[0][1].shape, generator=torch.Generator(device=device).manual_seed(seed + 5),
-                     device=device)
+    spec = P(seen[0][3] or None, None, None)
+    dy = torch.randn((*batches[0]["tokens"].shape, cfg.d_model), device=device,
+                     generator=torch.Generator(device=device).manual_seed(seed + 5))
     loop = []
-    for li, (lp, x) in enumerate(seen[:EP_F32_LAYERS]):
-        w = {k: lp[k].detach().clone().requires_grad_(True) for k in keys}
-        xi = x.clone().requires_grad_(True)
-        out_ep, log = ep_logged(lambda: moe_lib.moe_block(e125.moe, w, xi, mesh=mesh))
-        g_ep = torch.autograd.grad((out_ep * dy).sum(), [xi, *w.values()])
-        g_ep = [g_ep[0], *moe_lib.unshard_experts(m, dict(zip(keys, g_ep[1:])), mesh).values()]
+    for li, (lp, h, router, batch) in enumerate(seen):
+        w = {k: lp[k].detach().clone().requires_grad_(True) for k in moe_lib.EXPERT_KEYS}
+        rw, xi = router.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        out_ep, log = ep_logged(lambda: moe_lib.moe_ep_rows(e125.moe, w, xi, rw, batch, mesh))
+        g = torch.autograd.grad((out_ep * shard_tensor(dy, spec, mesh)).sum(), [xi, rw, *w.values()])
+        g_ep = [unshard_tensor(g[0], spec, mesh), g[1].reshape(rw.shape[-2:]),
+                *moe_lib.unshard_experts(m, dict(zip(moe_lib.EXPERT_KEYS, g[2:])), mesh).values()]
         whole = {k: v.detach().clone().requires_grad_(True) for k, v in moe_lib.unshard_experts(m, w, mesh).items()}
-        xp = x.clone().requires_grad_(True)
+        whole["router"] = router.reshape(rw.shape[-2:]).clone().requires_grad_(True)
+        xp = unshard_tensor(h, spec, mesh).requires_grad_(True)
         plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, whole, xp, mesh)
         g_plain = torch.autograd.grad((plain * dy).sum(), [xp, *(whole[k] for k in keys)])
         (r,) = log
         same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
-        stats = ep_stats(log, m, ep, x.shape[0] * x.shape[1], cfg.d_model, 4)
+        stats = ep_stats(log, m, ep, dy.shape[0] * dy.shape[1], cfg.d_model, 4)
         rel = rel_errs(g_ep, g_plain, ["input", *keys])
         loop.append({"layer": li, "same_slots": same, "Cs": r.Cs, "Ce": r.Ce, "max_rel_err": max(rel.values()),
                      "rel_err_by_leaf": rel, "stage1_dropped_share": stats["stage1_dropped_share_mean"],
@@ -4481,8 +4343,9 @@ def ep_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
         check(same, f"layer {li}: EP and the plain loop keep other slots")
         check(max(rel.values()) <= MESH_GRAD_REL, f"layer {li}: EP gradients vs the plain loop's: {rel}")
     out["float32_layers_grads_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "layers": loop,
-                                                 "inputs": "each layer's input in a float32 EP forward of the "
-                                                           "first batch", "tolerance_rel": MESH_GRAD_REL}
+                                                 "inputs": "each layer's MoE input in a float32 forward of the first "
+                                                           "batch, every leaf laid out (TP attention, EP experts)",
+                                                 "tolerance_rel": MESH_GRAD_REL}
     del params, sharded, seen, w, whole, g_ep, g_plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -4979,10 +4842,12 @@ def dense_serve_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict
             "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks"}
 
 
-def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None) -> tuple[dict, dict]:
+def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None, *, new_tokens: int = SERVE_NEW,
+               routes: bool = False) -> tuple[dict, dict]:
     """One drain of `prompts` through `build_engine` (SERVE_SLOTS slots,
-    SERVE_MAX_SEQ positions, SERVE_NEW new tokens), after a warm-up prefill
-    and decode step: (the turn's numbers, {uid: tokens})."""
+    SERVE_MAX_SEQ positions, `new_tokens` new tokens), after a warm-up
+    prefill and decode step: (the turn's numbers, with `routes` an MoE
+    model's dropped share of routed slots, {uid: tokens})."""
     from repro_torch.launch.serve import build_engine
 
     engine = build_engine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device, mesh=mesh)
@@ -4991,13 +4856,16 @@ def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None
                                     torch.zeros(SERVE_SLOTS, dtype=torch.long))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    done, st, wall_s, launches = drain_timed(engine, prompts, SERVE_NEW)
+    logs = {"prefill": [], "decode": []} if routes else None
+    done, st, wall_s, launches = drain_timed(engine, prompts, new_tokens, logs)
     out = {"wall_s": wall_s, "prefill_tokens": st["prefill_tokens"], "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
            "decode_steps": st["decode_steps"], "decode_ms_a_step": st["decode_s"] / st["decode_steps"] * 1e3,
            "decode_tok_s": st["decode_tokens"] / st["decode_s"], "flash_attention_launches": launches,
            "finite": st["finite"], "requests_drained": len(done),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "kv_cache_shape": list(engine.cache["k"].shape)}
+    if routes:
+        out["dropped_share"] = dropped_share(logs["prefill"] + logs["decode"])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5132,12 +5000,13 @@ def dense_serve_f32(device: torch.device, seed: int, mesh) -> dict:
     return out
 
 
-def nccl_world_one_serve(device: torch.device, seed: int) -> dict:
+def nccl_world_one_serve(device: torch.device, seed: int, *, moe: bool = False) -> dict:
     """llama3.2-3b over SERVE_NCCL_LAYERS layers (bf16 activations), under
-    each strategy: a prefill of SERVE_NCCL_ROWS rows and SERVE_NCCL_STEPS
-    decode steps over the "process_group" backend, NCCL at world size 1 on a
-    (1, 1) mesh, against the stacked (1, 1) mesh under
-    `deterministic_algorithms()`: logits and cache bit-equal."""
+    each strategy (with `moe`: olmoe-1b-7b with EP, under tp_sp): a prefill
+    of SERVE_NCCL_ROWS rows and SERVE_NCCL_STEPS decode steps over the
+    "process_group" backend, NCCL at world size 1 on a (1, 1) mesh, against
+    the stacked (1, 1) mesh under `deterministic_algorithms()`: logits and
+    cache bit-equal."""
     import tempfile
 
     import torch.distributed as dist
@@ -5147,7 +5016,10 @@ def nccl_world_one_serve(device: torch.device, seed: int) -> dict:
     from repro_torch.models import transformer as tfm
     from repro_torch.models.sharding import MeshRules
 
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH).model_config(), n_layers=SERVE_NCCL_LAYERS)
+    cfg = dataclasses.replace(get_arch(MOE_ARCH if moe else SERVE_ARCH).model_config(), n_layers=SERVE_NCCL_LAYERS)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
+    strategies = ("tp_sp",) if moe else ("tp_sp", "fsdp")
     rng = np.random.default_rng(seed + 2)
     prompt = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT))).to(device)
     steps = [torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, 1))).to(device)
@@ -5158,7 +5030,7 @@ def nccl_world_one_serve(device: torch.device, seed: int) -> dict:
     def runs(mesh, want: dict | None = None) -> dict:
         out = {}
         with deterministic_algorithms(), torch.no_grad():
-            for strategy in ("tp_sp", "fsdp"):
+            for strategy in strategies:
                 c = dataclasses.replace(cfg, rules=MeshRules(strategy=strategy))
                 p = tfm.shard_params(params, c, mesh)
                 cache = tfm.init_kv_cache(c, SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT + 16, torch.float32, device=device,
@@ -5180,10 +5052,11 @@ def nccl_world_one_serve(device: torch.device, seed: int) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    r = {"backend": backend, "world_size": 1, "mesh": {a: 1 for a in MESH_AXES}, "layers": SERVE_NCCL_LAYERS,
-         "rows": SERVE_NCCL_ROWS, "prompt": SERVE_NCCL_PROMPT, "decode_steps": SERVE_NCCL_STEPS,
+    r = {"backend": backend, "world_size": 1, "mesh": {a: 1 for a in MESH_AXES}, "arch": cfg.name,
+         "layers": SERVE_NCCL_LAYERS, "rows": SERVE_NCCL_ROWS, "prompt": SERVE_NCCL_PROMPT,
+         "decode_steps": SERVE_NCCL_STEPS,
          "deterministic_algorithms": True, **{f"{k}_logits_and_cache_bit_equal_stacked": v for k, v in same.items()}}
-    check(all(same.values()), f"dense serving over NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
+    check(all(same.values()), f"{cfg.name} served over NCCL at world size 1 vs the stacked (1, 1) mesh: {r}")
     return r
 
 
@@ -5263,6 +5136,437 @@ def phase_mesh_dense_serve(device: torch.device, seed: int, smi: str | None, tim
            "timing": "host clock around each prefill / decode call, synchronised on both sides; the routes in "
                      "turns, each a mean of two"}
     say("mesh_dense_serve", **out)
+    return out, launches
+
+
+# --------------------------------------------------------------------------- mesh_moe_serve
+
+# (i) serving the MoE transformer on MESH_SHAPE under tp_sp, Megatron TP attention and expert-parallel experts in
+# one layer (`models.dense_mesh` with `_moe_ffn` over `moe.moe_ep_rows`, the KV cache laid out by
+# `kv_cache_specs`): olmoe-1b-7b at its published width and depth and qwen2-moe-a2.7b over MOE_WIDE_LAYERS layers
+# drained through `build_engine(..., mesh=)` beside one device's impl="local" engine, in turns, on the same bf16
+# weights and the serve phase's traffic; float32 logits and cache at capacity factor E/k against one device's; the
+# drop path at the config's capacity factor against the plain per-engine loop; NCCL at world size 1; the attention
+# kernel at the per-engine prefill shape
+MOE_TP_TURNS = ("local", "tp_ep", "tp_ep", "local")
+MOE_F32_LAYERS = 16  # olmoe's float32 weights laid out beside one device's copy: 2 × 27 GB, with the caches
+MOE_DROP_PROMPT = 2047  # a one-slot prompt that 16 engines do not divide: the reference's flat layout, padded
+
+
+def moe_tp_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict:
+    """The bytes one forward of an MoE model served under tp_sp with EP (a
+    prefill of `rows` × `seq` tokens, or a decode step of `rows` × 1) moves
+    on `mesh`, from the specs, each collective as the port runs it (an
+    all-gather-based collective: an engine receives its group's other
+    blocks), summed over the engines: the router's "data" gather (float32)
+    and the other FSDP gathers (attention, norms, shared expert, embedding,
+    lm_head, in `cfg.dtype`), the "model" psums (wo's, the shared expert's
+    ws_down, the embedding's), EP's all-to-alls (tokens there and outputs
+    back in `cfg.dtype`, and the expert ids, over the whole capacity-sized
+    buffers), EP's gathers (the rows over "data" where the blocks do not
+    coincide, every engine's output back), the last positions' logits."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+
+    m, specs, engines = cfg.moe, tfm.param_specs(cfg, mesh), mesh.num_engines
+    item, d = torch.finfo(cfg.dtype).bits // 8, cfg.d_model
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    b_size = dp if batch_split else 1
+    b_l = rows // b_size
+    shapes = {k: s for k, s in tfm.layer_shapes(cfg).items() if k not in moe_lib.EXPERT_KEYS}
+    router = gather_bytes(mesh, {"data"}, shapes.pop("router"), specs["layers"]["router"][1:], 4)
+    layer = sum(gather_bytes(mesh, {"data"}, s, specs["layers"][k][1:], item) for k, s in shapes.items())
+    top = gather_bytes(mesh, {"data"}, (cfg.vocab, d), specs["embed"], item)
+    top += 0 if cfg.tie_embeddings else gather_bytes(mesh, {"data"}, (d, cfg.vocab), specs["lm_head"], item)
+    act = engines * (tp - 1) * b_l * seq * d * item  # one model-axis psum of the residual
+    coincide = batch_split and (b_l * seq) % tp == 0
+    n_l = -(-rows * seq // engines)
+    e_l = m.padded_experts(tp) // tp
+    cs, _ = moe_lib.ep_capacities(m, n_l, tp, e_l)
+    a2a = 2 * engines * tp * cs * d * item + engines * tp * cs * 8
+    if coincide:
+        gathers = engines * (tp - 1) * n_l * d * item
+    else:
+        gathers = engines * (engines - 1) * n_l * d * item + engines * (b_size - 1) * b_l * seq * d * item
+    vocab_l = cfg.vocab // (tp if tuple(specs["lm_head"])[1] is not None else 1)
+    logits = engines * (b_size - 1) * b_l * vocab_l + engines * (tp - 1) * rows * vocab_l
+    psums = (2 if m.d_ff_shared else 1) * act
+    return {"router_data_gathers": cfg.n_layers * router, "other_fsdp_gathers": cfg.n_layers * layer + top,
+            "model_psums": cfg.n_layers * psums, "embedding_psum": act if tuple(specs["embed"])[0] else 0,
+            "ep_all_to_alls": cfg.n_layers * a2a, "ep_gathers": cfg.n_layers * gathers,
+            "logits_gather": logits * item, "ep_tokens_an_engine": n_l, "Cs": cs,
+            "blocks_coincide": coincide,
+            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks; the "
+                       "all-to-alls whole (2·engines·model·Cs·d·itemsize and the ids)"}
+
+
+def dropped_share(calls: list) -> float:
+    """The share of routed slots dropped over `drain_timed`'s route logs
+    (each call's routings: (C, counts) of the local path, or an `EpRoute`,
+    both stages)."""
+    slots = dropped = 0
+    for call in calls:
+        for r in call:
+            if isinstance(r, tuple):
+                C, c = r
+                slots += int(c.sum())
+                dropped += int((c - C).clamp_min(0).sum())
+            else:
+                slots += int(r.stage1.sum())
+                dropped += int((r.stage1 - r.Cs).clamp_min(0).sum()) + int((r.stage2[:, :-1] - r.Ce).clamp_min(0).sum())
+    return dropped / max(slots, 1)
+
+
+@contextlib.contextmanager
+def ep_rows_seen(layers: tuple):
+    """Yields a list that gets (weights, input, router, batch axes) of the
+    composed MoE blocks (`moe.moe_ep_rows`) of `layers` called in the block,
+    in call order; each block runs as it is."""
+    from repro_torch.models import moe as moe_lib
+
+    fn, seen, calls = moe_lib.moe_ep_rows, [], [0]
+
+    def grab(m, lp, x, router, batch, mesh):
+        if calls[0] in layers:
+            seen.append((lp, x.detach().clone(), router.detach(), batch))
+        calls[0] += 1
+        return fn(m, lp, x, router, batch, mesh)
+
+    moe_lib.moe_ep_rows = grab
+    try:
+        yield seen
+    finally:
+        moe_lib.moe_ep_rows = fn
+
+
+@contextlib.contextmanager
+def expert_choices():
+    """Yields a list that gets each MoE routing's (top-k expert ids, sorted,
+    (tokens, k); the gap between each token's k-th and (k+1)-th router
+    logit, (tokens,)) in the flat token order, one entry a layer a call: the
+    local path's, and EP's (the engines' blocks in (data…, model) order are
+    the reference's flat layout, padding last); each routing runs as it is."""
+    from repro_torch.models import moe as moe_lib
+
+    route, seen = moe_lib._route, []
+
+    def spy(m, logits, dtype):
+        out = route(m, logits, dtype)
+        flat = logits.reshape(-1, logits.shape[-1])
+        if flat.shape[-1] > m.top_k:
+            top = flat.topk(m.top_k + 1, dim=-1).values
+            gap = top[:, -2] - top[:, -1]
+        else:  # every expert picked: no tie to break
+            gap = torch.full(flat.shape[:1], float("inf"), device=flat.device)
+        seen.append((out[1].reshape(-1, m.top_k).sort(-1).values, gap))
+        return out
+
+    moe_lib._route = spy
+    try:
+        yield seen
+    finally:
+        moe_lib._route = route
+
+
+def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, mesh) -> tuple[dict, int]:
+    """One MoE model served through `build_engine` under tp_sp with EP on
+    `mesh` and with impl="local" on one device, in turns (MOE_TP_TURNS), on
+    the same bf16 weights: every request drained, logits finite, one
+    attention launch a layer a prefill, the dropped share of routed slots;
+    prefill tokens/s, decode ms, peak; on the mesh two prefills of the
+    longest prompt bit-equal with their routes (Cs, Ce, dropped shares by
+    layer), a decode step's (nothing dropped), the bytes a prefill and a
+    decode step move.  Returns (the entry, the first mesh turn's attention
+    launches)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    m, L = cfg.moe, cfg.n_layers
+    ep = mesh.shape[m.ep_axis]
+    tp_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"), rules=MeshRules(strategy="tp_sp"))
+    t0 = time.perf_counter()
+    params = tfm.cast_params(tfm.init_params(cfg, seed, device=device), cfg)  # the moe phase's bf16 weights
+    laid = tfm.shard_params(params, tp_cfg, mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dp = mesh.shape["data"]
+    check(laid["layers"]["wq"].shape[:2] == (dp, ep) and laid["layers"]["router"].shape[:2] == (dp, 1)
+          and laid["layers"]["we_gate"].shape[:2] == (1, ep), "the laid-out leaves: wq over both axes, the router "
+          "over data, the expert stacks over model")
+    runs = {"local": [], "tp_ep": []}
+    for name in MOE_TP_TURNS:
+        on_mesh = name == "tp_ep"
+        r, _ = serve_turn(tp_cfg if on_mesh else cfg, laid if on_mesh else params, prompts, device,
+                          mesh if on_mesh else None, new_tokens=new_tokens, routes=True)
+        check(r["requests_drained"] == len(prompts) and r["finite"], f"{cfg.name} {name}: {r}")
+        check(r["flash_attention_launches"] == L * len(prompts), f"{cfg.name} {name}: flash_attention launched "
+              f"{r['flash_attention_launches']} times, want {L} a prefill × {len(prompts)}")
+        runs[name].append(r)
+    # the longest prompt's prefill on the mesh, twice, and a decode step at 4 slots
+    toks = torch.from_numpy(max(prompts, key=len)[None, :].astype(np.int64)).to(device)
+
+    def one_prefill():
+        cache = tfm.init_kv_cache(tp_cfg, SERVE_SLOTS, toks.shape[1], dtype=torch.float32, device=device, mesh=mesh)
+        return tfm.prefill(laid, toks, cache, tp_cfg, mesh=mesh, slot=0)[0], cache
+
+    with torch.no_grad():
+        (la, ca), log = ep_logged(one_prefill)
+        lb, cb = one_prefill()
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(la, lb) and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]))
+        check(bit_equal, f"{cfg.name}: two composed prefills of one prompt differ")
+        prefill_routes = ep_stats(log, m, ep, toks.shape[1], cfg.d_model, 2)
+        pos = torch.full((SERVE_SLOTS,), toks.shape[1] - 1, dtype=torch.long, device=device)
+        _, dlog = ep_logged(lambda: tfm.decode_step_batched_pos(laid, ca, pos, toks[0, :SERVE_SLOTS, None], tp_cfg,
+                                                               mesh=mesh))
+    decode_routes = ep_stats(dlog, m, ep, SERVE_SLOTS, cfg.d_model, 2)
+    check(prefill_routes["padded_expert_slots"] == 0 and decode_routes["padded_expert_slots"] == 0,
+          f"{cfg.name}: a padded expert got a slot")
+    check(decode_routes["stage1_dropped_share_mean"] == 0 and decode_routes["stage2_dropped_share_mean"] == 0,
+          f"{cfg.name}: a composed decode step dropped a slot")
+    del la, lb, ca, cb, params, laid
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "experts": m.num_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert, "d_ff_shared": m.d_ff_shared,
+           "capacity_factor": m.capacity_factor, "padded_experts": m.padded_experts(ep),
+           "experts_an_engine": m.padded_experts(ep) // ep, "mesh": dict(mesh.shape), "engines": mesh.num_engines,
+           "strategy": "tp_sp", "activations": "bfloat16", "kv_cache": "float32", "slots": SERVE_SLOTS,
+           "max_seq": SERVE_MAX_SEQ, "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
+           "max_new_tokens": new_tokens, "setup_s": setup_s, "turns": list(MOE_TP_TURNS), "runs": runs,
+           "prefill_tok_s": {k: float(np.mean([r["prefill_tok_s"] for r in v])) for k, v in runs.items()},
+           "decode_ms_a_step": {k: float(np.mean([r["decode_ms_a_step"] for r in v])) for k, v in runs.items()},
+           "max_memory_allocated_gb": {k: max(r["max_memory_allocated_gb"] for r in v) for k, v in runs.items()},
+           "flash_attention_launches_a_drain": {k: v[0]["flash_attention_launches"] for k, v in runs.items()},
+           "dropped_share_a_drain": {k: [r["dropped_share"] for r in v] for k, v in runs.items()},
+           "prefills_bit_equal": bit_equal, "routes_longest_prefill": prefill_routes,
+           "routes_decode_step": {k: decode_routes[k] for k in (
+               "tokens", "Cs", "Ce", "stage1_dropped_share_mean", "stage2_dropped_share_mean", "padded_expert_slots")},
+           "bytes": {"prefill_2048_one_slot": moe_tp_bytes(tp_cfg, mesh, 1, TP_PREFILL_S, False),
+                     "decode_step": moe_tp_bytes(tp_cfg, mesh, SERVE_SLOTS, 1, True)}}
+    out["tp_ep_vs_local_prefill_tok_s"] = out["prefill_tok_s"]["tp_ep"] / out["prefill_tok_s"]["local"]
+    out["tp_ep_vs_local_decode_ms"] = out["decode_ms_a_step"]["tp_ep"] / out["decode_ms_a_step"]["local"]
+    return out, runs["tp_ep"][0]["flash_attention_launches"]
+
+
+def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -> dict:
+    """`cfg` in float32 (weights and activations) at capacity factor E/k
+    (no slot can drop): SERVE_F32_ROWS one-slot prefills of their own
+    lengths into a cache of as many slots and SERVE_F32_MAX_SEQ positions,
+    then SERVE_F32_STEPS `decode_step_batched_pos` steps, on one device
+    (impl="local") and under tp_sp with EP on `mesh` (twice: bit-equal);
+    every logit within MESH_F32_TOL of one device's, greedy tokens equal, no
+    slot dropped, the unsharded cache within MODEL_TOL at every position
+    whose token picked the same experts in every layer on both routes (a
+    near tie in the router flips on float32 rounding: such a token's later
+    k/v differ, and it is counted; each position's first such layer must be
+    a near tie in the one-device run, ROUTER_NEAR_TIE, and such routings at
+    most ROUTER_FLIP_SHARE of all).  With `drop_path`, at the
+    config's capacity factor: a one-slot prefill of MOE_DROP_PROMPT tokens
+    (the reference's padded flat layout), and each composed MoE block of
+    MESH_LOOP_LAYERS on its input there against `moe_ep_loop_ref` on the
+    same flat batch: the same slots kept in both stages, slots dropped in
+    both, outputs within MESH_LOOP_TOL."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls in the float32 serving check")
+    m = cfg.moe
+    cf = m.num_experts / m.top_k
+    local = dataclasses.replace(cfg, dtype=torch.float32, moe=dataclasses.replace(m, capacity_factor=cf, impl="local"))
+    tp_cfg = dataclasses.replace(local, moe=dataclasses.replace(local.moe, impl="ep_shardmap"),
+                                 rules=MeshRules(strategy="tp_sp"))
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(*SERVE_F32_PROMPT, size=SERVE_F32_ROWS)
+    prompts = [torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, int(n)))).to(device) for n in lengths]
+    steps = [torch.from_numpy(rng.integers(2, cfg.vocab, size=(SERVE_F32_ROWS, 1))).to(device)
+             for _ in range(SERVE_F32_STEPS)]
+    pos0 = torch.from_numpy(lengths.astype(np.int64)).to(device)
+    params = tfm.init_params(local, seed, device=device)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(c, p, msh) -> dict:
+        cache = tfm.init_kv_cache(c, SERVE_F32_ROWS, SERVE_F32_MAX_SEQ, torch.float32, device=device, mesh=msh)
+        pre = torch.cat([tfm.prefill(p, t, cache, c, mesh=msh, slot=i)[0] for i, t in enumerate(prompts)])
+        dec = [tfm.decode_step_batched_pos(p, cache, pos0 + i, t, c, mesh=msh)[0] for i, t in enumerate(steps)]
+        torch.cuda.synchronize()
+        return {"prefill": pre, "decode": dec, "cache": tfm.unshard_kv_cache(cache, c, msh)}
+
+    def diff(a, b) -> float:
+        return float((a - b).abs().max())
+
+    with torch.no_grad():
+        with expert_choices() as want_k:
+            want, local_drop = local_dropped(lambda: run(local, params, None))
+        laid = tfm.shard_params(params, tp_cfg, mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        with expert_choices() as got_k:
+            got, log = ep_logged(lambda: run(tp_cfg, laid, mesh))
+        again = run(tp_cfg, laid, mesh)
+    # the positions whose token picked other experts in some layer on the two routes: each prefill's L routings,
+    # then each decode step's
+    L, rows = cfg.n_layers, SERVE_F32_ROWS
+    check(len(want_k) == len(got_k) == L * (rows + SERVE_F32_STEPS), "one routing a layer a call on both routes")
+    # the one-device router's gap between the k-th and (k+1)-th logit where a position first picked other experts
+    flipped = torch.zeros((rows, SERVE_F32_MAX_SEQ), dtype=torch.bool, device=device)
+    flips, first_gaps = 0, []
+    for call in range(rows + SERVE_F32_STEPS):
+        if call < rows:
+            at = (torch.full_like(prompts[call][0], call), torch.arange(prompts[call].shape[1], device=device))
+        else:
+            at = (torch.arange(rows, device=device), pos0 + call - rows)
+        for layer in range(L):
+            (a, gap), (b, _) = want_k[call * L + layer], got_k[call * L + layer]
+            differ = (a != b[:a.shape[0]]).any(-1)
+            flips += int(differ.sum())
+            first_gaps += gap[differ & ~flipped[at]].tolist()
+            flipped[at] |= differ
+    del want_k, got_k
+    ep_drop = sum(int((r.stage1 - r.Cs).clamp_min(0).sum()) + int((r.stage2[:, :-1] - r.Ce).clamp_min(0).sum())
+                  for r in log)
+    same = (torch.equal(got["prefill"], again["prefill"]) and all(map(torch.equal, got["decode"], again["decode"]))
+            and all(torch.equal(got["cache"][k], again["cache"][k]) for k in ("k", "v")))
+    del again
+    err = max([diff(got["prefill"], want["prefill"])] + [diff(a, b) for a, b in zip(got["decode"], want["decode"])])
+    cache_err = max(diff(got["cache"][k], want["cache"][k]) for k in ("k", "v"))
+    kept = ~flipped[None, :, :, None, None]
+    cache_close = all(bool(((got["cache"][k] - want["cache"][k]).abs() <= MODEL_TOL["atol"] + MODEL_TOL["rtol"]
+                            * want["cache"][k].abs()).logical_or(~kept).all()) for k in ("k", "v"))
+    cache_err_kept = max(float(((got["cache"][k] - want["cache"][k]).abs() * kept).max()) for k in ("k", "v"))
+    greedy = [torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip([got["prefill"], *got["decode"]],
+                                                                        [want["prefill"], *want["decode"]])]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32", "capacity_factor": cf,
+           "mesh": dict(mesh.shape), "rows": SERVE_F32_ROWS, "prompt_lengths": [int(x) for x in lengths],
+           "max_seq": SERVE_F32_MAX_SEQ, "decode_steps": SERVE_F32_STEPS, "tolerance_abs": MESH_F32_TOL,
+           "logits_max_abs": float(want["prefill"].abs().max()), "max_abs_err": err,
+           "prefill_max_abs_err": diff(got["prefill"], want["prefill"]),
+           "decode_max_abs_err_by_step": [diff(a, b) for a, b in zip(got["decode"], want["decode"])],
+           "cache_max_abs_err": cache_err, "cache_max_abs_err_same_experts": cache_err_kept,
+           "cache_max_abs": float(want["cache"]["k"].abs().max()), "cache_tolerance": MODEL_TOL,
+           "routings": L * (int(lengths.sum()) + SERVE_F32_STEPS * rows), "routings_with_other_experts": flips,
+           "positions_with_other_experts": int(flipped.sum()), "router_logit_gap_at_first_flip": first_gaps,
+           "router_near_tie": ROUTER_NEAR_TIE, "router_flip_share_limit": ROUTER_FLIP_SHARE,
+           "greedy_tokens_equal_prefill_then_steps": greedy,
+           "two_runs_bit_equal": same, "slots_dropped": {"local": local_drop, "tp_ep": ep_drop},
+           "Cs_of_a_prefill": log[0].Cs, "Ce_of_a_prefill": log[0].Ce}
+    del got, want
+    check(local_drop == 0 and ep_drop == 0,
+          f"{cfg.name}: slots dropped at capacity_factor {cf}: {out['slots_dropped']}")
+    check(same, f"{cfg.name}: two float32 composed runs differ")
+    check(flips <= ROUTER_FLIP_SHARE * out["routings"] and all(g < ROUTER_NEAR_TIE for g in first_gaps),
+          f"{cfg.name}: the composed route picked other experts than one device's where the router is no near tie: "
+          f"{flips} of {out['routings']} routings, first-flip gaps {first_gaps}")
+    check(err <= MESH_F32_TOL and cache_close and all(greedy),
+          f"{cfg.name}: float32 composed serving vs one device: {out}")
+    if drop_path:
+        e125 = dataclasses.replace(tp_cfg, moe=dataclasses.replace(m, impl="ep_shardmap"))
+        toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, MOE_DROP_PROMPT))).to(device)
+        cache = tfm.init_kv_cache(e125, SERVE_SLOTS, MOE_DROP_PROMPT, torch.float32, device=device, mesh=mesh)
+        with torch.no_grad(), ep_rows_seen(MESH_LOOP_LAYERS) as seen:
+            tfm.prefill(laid, toks, cache, e125, mesh=mesh, slot=0)
+            torch.cuda.synchronize()
+        del cache
+        check(len(seen) == len(MESH_LOOP_LAYERS), f"{len(seen)} composed MoE inputs caught, want {MESH_LOOP_LAYERS}")
+        ep, loop = mesh.shape[m.ep_axis], []
+        for li, (lp, h, router, batch) in zip(MESH_LOOP_LAYERS, seen):
+            check(batch == () and h.shape[:2] == (1, 1), f"the one-slot prompt's rows are held once: {batch}")
+            with torch.no_grad():
+                got, log = ep_logged(lambda: moe_lib.moe_ep_rows(e125.moe, lp, h, router, batch, mesh))
+                whole = moe_lib.unshard_experts(m, {k: lp[k] for k in moe_lib.EXPERT_KEYS}, mesh)
+                whole["router"] = router.reshape(router.shape[-2:])
+                plain, stage1, stage2 = moe_lib.moe_ep_loop_ref(e125.moe, whole, h.reshape(1, *h.shape[-2:]), mesh)
+            (r,) = log
+            same = bool(torch.equal(r.stage1.cpu(), stage1) and torch.equal(r.stage2.cpu(), stage2))
+            routes = ep_stats(log, m, ep, MOE_DROP_PROMPT, cfg.d_model, 4)
+            got = got.reshape(plain.shape)
+            e = float((got - plain).abs().max())
+            loop.append({"layer": li, "max_abs_err": e, "out_max_abs": float(plain.abs().max()), "same_slots": same,
+                         "Cs": r.Cs, "Ce": r.Ce, "stage1_dropped_share": routes["stage1_dropped_share_mean"],
+                         "stage2_dropped_share": routes["stage2_dropped_share_mean"]})
+            check(same, f"{cfg.name} layer {li}: the composed block and the plain loop keep other slots")
+            check(loop[-1]["stage1_dropped_share"] > 0 and loop[-1]["stage2_dropped_share"] > 0,
+                  f"{cfg.name} layer {li}: no slot dropped in a stage at capacity_factor {m.capacity_factor}: "
+                  f"{loop[-1]}")
+            check(torch.allclose(got, plain, **MESH_LOOP_TOL),
+                  f"{cfg.name} layer {li}: composed vs the plain loop: {e}")
+        out["drop_path_vs_plain_loop"] = {"capacity_factor": m.capacity_factor, "prompt": MOE_DROP_PROMPT,
+                                          "engines": mesh.num_engines, "tolerance": MESH_LOOP_TOL, "layers": loop,
+                                          "input": "each layer's MoE input in a float32 composed one-slot prefill"}
+        del seen, got, plain, whole
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del laid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_tp_attention(device: torch.device, timer: Timer, mesh) -> dict:
+    """`flash_attention` at olmoe's composed per-engine prefill shape on
+    `mesh`: one slot's TP_PREFILL_S-token prompt held once along "data",
+    the model engines' 16 / model query and kv heads folded into the batch
+    (q (model, S, 2, 128)), bf16, causal."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(MOE_ARCH).model_config()
+    tp = mesh.shape["model"]
+    gen = torch.Generator(device=device).manual_seed(17)
+    q, k, v = (torch.randn((tp, TP_PREFILL_S, h // tp, cfg.head_dim), generator=gen, device=device).to(torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    out = attention_forward_site(q, k, v, timer)
+    del q, k, v
+    torch.cuda.empty_cache()
+    out["timing"] = ("ms: device time replayed from a CUDA graph; call_ms, plain_ms (flash_attention_ref), library_ms "
+                     "(scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, dh) copies): calls enqueued "
+                     "back to back")
+    return out
+
+
+def phase_mesh_moe_serve(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """(i) MoE serving on MESH_SHAPE under tp_sp, Megatron TP attention and EP
+    experts in one layer: olmoe-1b-7b and qwen2-moe-a2.7b (MOE_WIDE_LAYERS)
+    through `moe_tp_drain` and `moe_tp_f32`, NCCL at world size 1, the
+    attention kernel at the new shape.  Returns (the `mesh_moe_serve` line,
+    the drains' attention launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.distributed import make_mesh
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    cfg = get_arch(MOE_ARCH).model_config()
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_LAYERS)
+    check(wide.moe.d_ff_shared > 0 and wide.moe.padded_experts(8) == 64, "qwen2-moe: a shared expert, 60 → 64")
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)  # the moe phase's traffic
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+    wide_prompt = [rng.integers(2, wide.vocab, size=MOE_WIDE_PROMPT).astype(np.int32)]
+    f32_cfg = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+    parts, launches = {}, {}
+    for name, fn in (("olmoe", lambda: moe_tp_drain(cfg, device, seed, prompts, SERVE_NEW, mesh)),
+                     ("olmoe_float32_vs_one_device", lambda: moe_tp_f32(f32_cfg, device, seed, mesh, drop_path=True)),
+                     ("qwen", lambda: moe_tp_drain(wide, device, seed, wide_prompt, MOE_WIDE_STEPS + 1, mesh)),
+                     ("qwen_float32_vs_one_device", lambda: moe_tp_f32(wide, device, seed, mesh, drop_path=False)),
+                     ("nccl", lambda: nccl_world_one_serve(device, seed, moe=True)),
+                     ("attention_tp_ep_prefill_shape", lambda: moe_tp_attention(device, timer, mesh))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        print(f"mesh_moe_serve: {name} done", file=sys.stderr, flush=True)
+        if name in ("olmoe", "qwen"):
+            parts[name], launches[name] = parts[name]
+        parts[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts["olmoe_float32_vs_one_device"]["cuts"] = [] if MOE_F32_LAYERS == cfg.n_layers else [
+        f"{MOE_F32_LAYERS} of {cfg.n_layers} layers"]
+    for k in ("qwen", "qwen_float32_vs_one_device"):
+        parts[k]["cuts"] = [f"{MOE_WIDE_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, as the moe phase"]
+    out = {**parts, "card": smi,
+           "weights": "random, from a seeded torch.Generator on the card (the moe phase's seed: the same weights)",
+           "timing": "host clock around each prefill / decode call, synchronised on both sides; the routes in "
+                     "turns, each a mean of two"}
+    say("mesh_moe_serve", **out)
     return out, launches
 
 
@@ -5346,6 +5650,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_tp, serve_tp_launches = phase_mesh_dense_serve(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_moe, serve_moe_launches = phase_mesh_moe_serve(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -5399,8 +5706,8 @@ def main() -> int:
         "moe_shape": moe_attn,
         "launches_moe_train": moe_train_launches["flash_attention"],
         "launches_moe_train_qwen": moe_train_launches["flash_attention_qwen"],
-        "launches_mesh_models": mesh["olmoe"]["flash_attention_launches_a_drain"]["ep"],
-        "launches_mesh_models_qwen": mesh["qwen"]["flash_attention_launches_a_drain"]["ep"],
+        "launches_mesh_moe_serve": serve_moe_launches["olmoe"],
+        "launches_mesh_moe_serve_qwen": serve_moe_launches["qwen"],
         "launches_mesh_train": train_mesh["flash_attention"], "launches_mesh_train_qwen": train_mesh["flash_attention_qwen"],
         "launches_mesh_dense": dense_launches["flash_attention"],
         "launches_mesh_dense_serve": serve_tp_launches,
@@ -5426,6 +5733,16 @@ def main() -> int:
                  f"{tuple(serve_tp['attention_tp_prefill_shape']['path']['k'])} bf16, causal; library: "
                  "scaled_dot_product_attention",
         "both_data_engines": serve_tp["attention_tp_prefill_shape"]["both_data_engines"],
+    }, {
+        "name": "flash_attention.tp_ep_prefill", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": serve_moe_launches["olmoe"],
+        **{k: serve_moe["attention_tp_ep_prefill_shape"][k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"olmoe-1b-7b's one-slot prefill attention under tp_sp with EP on {MESH_SHAPE} (the prompt held once "
+                 "along \"data\", every model engine's 2 of 16 query and kv heads folded into the batch): q "
+                 f"{tuple(serve_moe['attention_tp_ep_prefill_shape']['q'])}, k/v "
+                 f"{tuple(serve_moe['attention_tp_ep_prefill_shape']['k'])} bf16, causal; library: "
+                 "scaled_dot_product_attention",
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "

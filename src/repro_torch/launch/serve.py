@@ -6,7 +6,8 @@
 serves `smoke_config()` of the arch on the card (`--device cpu` runs it on the
 host); `--arch olmoe-1b-7b` and `--arch qwen2-moe-a2.7b` serve the MoE archs'
 smoke configs.  `build_engine` takes any `TransformerConfig`; `chip_smoke.py`
-drives it at the published widths of llama3.2-3b and olmoe-1b-7b.
+drives it at the published widths of llama3.2-3b and olmoe-1b-7b, on one
+device and on a ("data", "model") engine mesh.
 """
 from __future__ import annotations
 
@@ -31,17 +32,16 @@ def build_engine(cfg: tfm.TransformerConfig, params: dict, *, slots: int, max_se
     `cfg.dtype` (`tfm.cast_params`).  `mesh`: the engine mesh (e.g.
     `graph.distributed.make_mesh((2, 8), ("data", "model"))`) that every
     prefill and decode step hands the model.  A dense model is served on it
-    by Megatron TP or FSDP as `cfg.rules` says: its params laid out
-    (`tfm.shard_params`, unless they are already) and its cache laid out by
-    `tfm.kv_cache_specs`, which splits the slots over the rules' batch axes
-    (a slot count that does not divide raises).  With `cfg.moe`, for
-    impl="ep_shardmap": `params` as EP takes them, the expert stacks laid
-    out on the mesh (`tfm.shard_params(params, cfg, mesh)`), the cache
-    whole."""
+    by Megatron TP or FSDP as `cfg.rules` says, an MoE model with
+    impl="ep_shardmap" by Megatron TP attention and EP experts (tp_sp): its
+    params laid out (`tfm.shard_params`, unless they are already) and its
+    cache laid out by `tfm.kv_cache_specs`, which splits the slots over the
+    rules' batch axes (a slot count that does not divide raises).  An MoE
+    model with impl="local" ignores the mesh."""
     dev = resolve_device(device)
     tfm.kv_cache_shape(cfg, slots, max_seq, mesh)  # raises for slots that do not divide over the batch axes
     params = tfm.cast_params(params, cfg, device=dev)
-    if mesh is not None and cfg.moe is None and params["embed"].dim() == 2:  # whole: lay it out
+    if mesh is not None and params["embed"].dim() == 2:  # whole: lay it out
         params = tfm.shard_params(params, cfg, mesh)
 
     def init_cache():

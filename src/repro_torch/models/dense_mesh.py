@@ -1,12 +1,16 @@
-"""Megatron tensor parallelism and FSDP for the dense transformer on an engine mesh.
+"""Megatron tensor parallelism and FSDP for the transformer on an engine mesh.
 
 What GSPMD makes of `repro.models.transformer.loss_fn` under `jax.jit` on a
 ("data", "model") mesh with `cfg.rules`: Megatron's column- and row-parallel
 products on "model" under `MeshRules(strategy="tp_sp")`, ZeRO-3 under
 "fsdp".  Eager PyTorch has no GSPMD, so the per-engine work is written here by
 hand, once, over the mesh's local-engine axes (as `moe._moe_ep_body` is), and
-both mesh backends run it with the same bits.  `transformer.forward` and
-`loss_fn` call it for a dense config given a mesh.
+both mesh backends run it with the same bits.  `transformer.forward`,
+`loss_fn`, `prefill` and the decode steps call it for a dense config given a
+mesh, and for an MoE config with impl="ep_shardmap" under tp_sp: the same
+layer, its FFN the reference's `moe_block` under `shard_map` (`_moe_ffn`:
+EP over "model" on each engine's own tokens, the shared expert Megatron TP),
+its KV cache laid out as a dense model's.
 
 Layout.  Every leaf is laid out by `transformer.shard_params`
 (`sharding.shard_tensor` with `transformer.param_specs`): (local engines…,
@@ -68,8 +72,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_rope, gqa_attention, rms_norm, rope_table
-from repro_torch.models.sharding import P, axis_if_divisible, shard_tensor, unshard_tensor
+from repro_torch.models.sharding import P, axis_if_divisible, gather_dim, own_block, shard_tensor, unshard_tensor
 
 __all__ = ["forward", "loss_fn", "prefill", "decode"]
 
@@ -87,15 +92,17 @@ def _ordered(mesh, axes) -> tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
-    """What every layer reads: the mesh, `param_specs`, the axes the token
-    rows are split over (empty: whole on every engine), the rules' fsdp axes
-    and tensor-parallel axis (None under "fsdp" or without it in the mesh)."""
+    """What every layer reads: the mesh, the params' specs, the axes the
+    token rows are split over (empty: whole on every engine), the rules'
+    fsdp axes and tensor-parallel axis (None under "fsdp" or without it in
+    the mesh), and the FFN block (`_ffn`, or `_moe_ffn` with its config)."""
 
     mesh: object
     specs: dict
     batch: tuple[str, ...]
     fsdp: frozenset
     tp: str | None
+    ffn: object
 
 
 def _plan(cfg, mesh, specs: dict, n_rows: int) -> _Plan:
@@ -103,44 +110,11 @@ def _plan(cfg, mesh, specs: dict, n_rows: int) -> _Plan:
     batch = _ordered(mesh, r.batch)
     batch = tuple(axis_if_divisible(n_rows, batch, mesh) or ()) if batch else ()
     tp = r.model if r.model in mesh.shape else None
-    return _Plan(mesh, specs, batch, frozenset(_axes(r.fsdp)), tp)
+    ffn = _ffn if cfg.moe is None else functools.partial(_moe_ffn, cfg.moe)
+    return _Plan(mesh, specs, batch, frozenset(_axes(r.fsdp)), tp, ffn)
 
 
 # ------------------------------ collectives ---------------------------------
-
-
-def _gather_dim(mesh, t: Tensor, axes: tuple[str, ...], dim: int) -> Tensor:
-    """`t` (local engines…, …), its dim `dim` (absolute) split over `axes` in
-    that order (`shard_tensor`'s layout): the whole dim, held once along
-    `axes`.  On "process_group" `all_gather` along each axis first; on
-    "stacked" the blocks are already there, and both reassemble the dim by
-    one reshape."""
-    n = len(mesh.axis_names)
-    for a in axes:
-        t = mesh.all_gather(t, a)
-    idx = [mesh.axis_index(a) for a in axes]
-    others = [i for i in range(n) if i not in idx]
-    order = others + list(range(n, dim)) + idx + list(range(dim, t.dim()))
-    t = t.permute(order)
-    k = len(others) + dim - n
-    shape = list(t.shape)
-    t = t.reshape(*shape[:k], -1, *shape[k + len(idx) + 1:])
-    for i in sorted(idx):
-        t = t.unsqueeze(i)
-    return t
-
-
-def _own_block(mesh, t: Tensor, axis: str, dim: int) -> Tensor:
-    """`t` (local engines…, …), the same on every engine along `axis` (its
-    local axis full there: entered), cut along `dim` (absolute) into the
-    axis's size blocks: each engine's block at its coordinate."""
-    a, size = mesh.axis_index(axis), mesh.shape[axis]
-    t = t.unflatten(dim, (size, t.shape[dim] // size))
-    coords = torch.as_tensor(mesh.local_coords(axis), device=t.device)
-    shape = [1] * t.dim()
-    shape[a] = len(coords)
-    index = coords.view(shape).expand(*t.shape[:dim], 1, *t.shape[dim + 1:])
-    return torch.gather(t, dim, index).squeeze(dim)
 
 
 def _by_block(t: Tensor, lw: tuple, n: int) -> tuple[Tensor, list, torch.Size]:
@@ -276,7 +250,7 @@ def _weight(plan: _Plan, w: Tensor, spec) -> tuple[Tensor, frozenset]:
     for dim, entry in enumerate(spec):
         axes = _axes(entry)
         if axes and set(axes) <= plan.fsdp:
-            w = _gather_dim(plan.mesh, w, axes, n + dim)
+            w = gather_dim(plan.mesh, w, axes, n + dim)
         else:
             varying |= set(axes)
     return w, frozenset(varying)
@@ -333,13 +307,13 @@ def _attention(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, attend)
     heads_local = (plan.tp is not None and all(plan.tp in a for _, a in qkv)
                    and cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0)
     if not heads_local:  # the split columns gathered over "model": attention once a data row
-        qkv = [(_gather_dim(mesh, t, (plan.tp,), t.dim() - 1), a - {plan.tp}) if plan.tp in a else (t, a)
+        qkv = [(gather_dim(mesh, t, (plan.tp,), t.dim() - 1), a - {plan.tp}) if plan.tp in a else (t, a)
                for t, a in qkv]
     (q, qa), (k, _), (v, _) = qkv
     out = attend(*(t.unflatten(-1, (-1, cfg.head_dim)) for t in (q, k, v))).flatten(-2)
     wo, wa = _weight(plan, lp["wo"], specs["wo"][1:])
     if plan.tp is not None and plan.tp in wa - qa:  # wo's row blocks: each engine its own columns
-        out = _own_block(mesh, mesh.enter(out, plan.tp), plan.tp, out.dim() - 1)
+        out = own_block(mesh, mesh.enter(out, plan.tp), plan.tp, out.dim() - 1)
         qa = qa | {plan.tp}
     y, ya = _matmul(plan, out, qa, wo, wa)
     return _psum_tp(plan, y, ya, x_axes)
@@ -372,9 +346,31 @@ def _ffn(plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict) -> Tensor:
     return _psum_tp(plan, y, ya, x_axes)
 
 
+def _moe_ffn(m, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict) -> Tensor:
+    """The MoE block on `mlp_norm`'s output: the routed experts by EP over
+    "model" on each engine's own tokens (`moe.moe_ep_rows`), the router
+    gathered whole as `param_specs` lays it (float32, as `cast_params` keeps
+    it); qwen2-moe's sigmoid-gated shared expert as Megatron TP, `_ffn`'s
+    products (ws_gate/ws_up column-parallel, ws_down row-parallel and summed
+    over "model"), its gate ws_sig replicated."""
+    specs = plan.specs["layers"]
+    h = rms_norm(x, _scale(plan, lp["mlp_norm"], x, x_axes))
+    router, _ = _weight(plan, lp["router"], specs["router"][1:])
+    out = moe_lib.moe_ep_rows(m, lp, h, router, plan.batch, plan.mesh)
+    if m.d_ff_shared:
+        (g, ga), (u, _) = _fan_out(plan, h, x_axes, [_weight(plan, lp[k], specs[k][1:]) for k in ("ws_gate", "ws_up")])
+        y, ya = _matmul(plan, F.silu(g) * u, ga, *_weight(plan, lp["ws_down"], specs["ws_down"][1:]))
+        # the gate, one dot product a row in float32 (a one-column BLAS product rounds by the row count, which
+        # differs between the backends' engines); entered as a norm scale is
+        sig = _scale(plan, _weight(plan, lp["ws_sig"], specs["ws_sig"][1:])[0][..., 0], h, x_axes)
+        gate = (h.float() * sig.float()).sum(-1, keepdim=True).to(h.dtype)
+        out = out + _psum_tp(plan, y, ya, x_axes) * torch.sigmoid(gate)
+    return out
+
+
 def _layer(cfg, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict, attend) -> Tensor:
     x = x + _attention(cfg, plan, x, x_axes, lp, attend)
-    return x + _ffn(plan, x, x_axes, lp)
+    return x + plan.ffn(plan, x, x_axes, lp)
 
 
 def _rows(plan: _Plan, t) -> Tensor:
@@ -443,7 +439,8 @@ def _logits(cfg, plan: _Plan, params: dict, layers: list, tokens) -> tuple[Tenso
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layers:
         if remat:
-            x = checkpoint(_layer, cfg, plan, x, axes, lp, attend, use_reentrant=False)
+            x = checkpoint(_layer, cfg, plan, x, axes, lp, attend, use_reentrant=False,
+                           context_fn=moe_lib.checkpoint_contexts)
         else:
             x = _layer(cfg, plan, x, axes, lp, attend)
     logits, la, ha = _head(cfg, plan, params, x, axes)

@@ -63,12 +63,21 @@ model column; each enters the per-engine work through `EngineMesh.enter`, so
 their gradients are the engines' partial gradients summed in engine order
 (the data rows' for the slab), and the exchanges and the final gather carry
 their transposes.  Differences: without a mesh, or on a mesh without the
-axis, EP raises where the reference runs the local path; EP takes the whole
-token batch, as the transformer around it holds it, and hands every process
-every token's output (the all-gather the reference's `out_specs` leave to
-XLA).  `moe_ep_loop_ref` is EP's plain version: the reference's per-device
-body for one engine at a time on the whole expert stacks, the exchanges as
-indexing, no sort.
+axis, EP raises where the reference runs the local path; `moe_block(...,
+mesh=)` takes the whole token batch and hands every process every token's
+output (the all-gather the reference's `out_specs` leave to XLA).
+`moe_ep_rows` is EP inside the transformer laid out on the mesh
+(`models.dense_mesh`, tp_sp): it takes the token rows as the residual lies,
+split over the data axes and held once along "model", and returns its
+output the same way.  The engines' blocks must be the reference's, whose
+capacities follow each block's token count: where the rows split over every
+data axis and B_l·S divides over "model", block i of data row g's own
+tokens is engine (g, i)'s; anywhere else the rows are gathered and laid out
+as `moe_block` lays a whole batch (padded, contiguous blocks), and each
+engine takes its own rows of the output back.  Both entries share
+`_moe_ep_body` and `ep_capacities`.  `moe_ep_loop_ref` is EP's plain
+version: the reference's per-device body for one engine at a time on the
+whole expert stacks, the exchanges as indexing, no sort.
 """
 from __future__ import annotations
 
@@ -80,11 +89,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import P, MeshRules, axis_if_divisible, shard_tensor, unshard_tensor
+from repro_torch.models.sharding import (P, MeshRules, axis_if_divisible, gather_dim, own_block, shard_tensor,
+                                         unshard_tensor)
 
 __all__ = ["MoEConfig", "IMPLS", "EXPERT_KEYS", "layer_shapes", "layer_specs", "ep_specs", "shard_experts",
-           "unshard_experts", "capacity", "ep_capacities", "moe_block", "moe_loop_ref", "moe_ep_loop_ref",
-           "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
+           "unshard_experts", "capacity", "ep_capacities", "moe_block", "moe_ep_rows", "moe_loop_ref",
+           "moe_ep_loop_ref", "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
 
 IMPLS = ("local", "ep_shardmap")
 EXPERT_KEYS = ("we_gate", "we_up", "we_down")
@@ -432,10 +442,10 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
     return y_tok.view(G, M, n_l, k, d).sum(3)
 
 
-def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
-    """Expert parallelism over `mesh`'s `m.ep_axis`.  x: (N, D), the whole
-    token batch on every process; `lp`'s expert stacks laid out on the mesh
-    (`shard_experts`).  Returns (N, D), gathered from every engine."""
+def _ep_slab_width(m: MoEConfig, lp: dict, mesh) -> int:
+    """e_l, the experts an engine holds; raises without a mesh that has
+    `m.ep_axis` or where `lp`'s expert stacks are not laid out on it
+    (`shard_experts`)."""
     if mesh is None or m.ep_axis not in mesh.shape:
         raise ValueError(f"MoE impl='ep_shardmap' needs a mesh with the {m.ep_axis!r} axis (moe_block(..., "
                          f"mesh=)); got {None if mesh is None else mesh.axis_names}")
@@ -447,18 +457,26 @@ def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
     if got != want or lp["we_gate"].dim() != n_axes + 3:
         raise ValueError(f"EP takes the expert stacks laid out on the mesh (moe.shard_experts, "
                          f"transformer.shard_params): leading dims {want}, got {tuple(lp['we_gate'].shape)}")
-    names = [name for name in mesh.axis_names if name != m.ep_axis]
-    # the local engines in (data axes…, model) order, the body's
-    to_body = [mesh.axis_index(name) for name in names] + [a]
-    n_dev = mesh.num_engines
-    n_tok, d = x.shape
-    n_pad = -(-n_tok // n_dev) * n_dev  # decode batches can be smaller than the engine count
-    if n_pad != n_tok:
-        x = torch.cat([x, x.new_zeros((n_pad - n_tok, d))])
-    n_l = n_pad // n_dev
+    return e_l
+
+
+def _token_axes(m: MoEConfig, mesh) -> tuple[str, ...]:
+    """The axes the reference lays the flat tokens over: the data axes in
+    the mesh's order, then the model axis (`act_tokens_sp`, `tok_spec`)."""
+    return (*(name for name in mesh.axis_names if name != m.ep_axis), m.ep_axis)
+
+
+def _ep_engines(m: MoEConfig, lp: dict, x: torch.Tensor, router: torch.Tensor, mesh, e_l: int) -> torch.Tensor:
+    """`_moe_ep_body` on the local engines' own tokens x (local engines…,
+    n_l, D), each engine's block of the reference's token layout; router
+    (1…, D, E), held once along every axis.  Returns (local engines…, n_l,
+    D)."""
+    n_axes, a = len(mesh.axis_names), mesh.axis_index(m.ep_axis)
+    names = _token_axes(m, mesh)[:-1]
+    to_body = [mesh.axis_index(name) for name in names] + [a]  # the local engines in (data axes…, model) order
     dp_local = [mesh.local_shape[i] for i in to_body[:-1]]
     G, M = int(np.prod(dp_local)), mesh.local_shape[a]
-    L = G * M
+    n_l, d = x.shape[-2:]
 
     def per_engine(t: torch.Tensor, axes=None) -> torch.Tensor:
         """A tensor held once along `axes` (None: every axis) as the local
@@ -466,23 +484,79 @@ def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
         t = mesh.enter(t, axes)
         return t.permute(*to_body, *range(n_axes, t.dim()))
 
-    # each local engine's own tokens (block (g, i) of the batch laid over (data axes…, model)) and router:
-    # the local engines' blocks are consecutive in body order (all of them on "stacked", one a process)
-    lead = (1,) * n_axes
-    first = [int(mesh.local_coords(name)[0]) for name in names] + [int(mesh.local_coords(m.ep_axis)[0])]
-    b0 = int(np.ravel_multi_index(first, [mesh.shape[name] for name in names] + [ep]))
-    xs = per_engine(x.view(*lead, n_pad, d)).reshape(L, n_dev, n_l, d)
-    engines = torch.arange(L, device=x.device)
-    xl = xs[engines, engines + b0]
-    router = per_engine(lp["router"].view(*lead, *lp["router"].shape)).reshape(L, *lp["router"].shape)
+    xl = x.permute(*to_body, n_axes, n_axes + 1).reshape(G, M, n_l, d)
+    rw = per_engine(router).reshape(G * M, *router.shape[n_axes:])
     # each data row's copy of the local engines' expert slab (M·e_l, ·, ·)
     slabs = zip(*(per_engine(lp[key], names).reshape(G, M * e_l, *lp[key].shape[n_axes + 1:]).unbind(0)
                   for key in EXPERT_KEYS))
-    out = _moe_ep_body(m, mesh, xl.view(G, M, n_l, d), router, list(slabs), e_l)
-    # every engine's tokens back on every process, in token order
-    full = out.view(*dp_local, M, n_l, d).movedim(len(dp_local), a)
-    full = mesh.all_gather(full).movedim(a, len(dp_local))
-    return full.reshape(n_pad, d)[:n_tok]
+    out = _moe_ep_body(m, mesh, xl, rw, list(slabs), e_l)
+    return out.view(*dp_local, M, n_l, d).movedim(len(dp_local), a)
+
+
+def _ep_flat(m: MoEConfig, lp: dict, x: torch.Tensor, router: torch.Tensor, mesh, e_l: int) -> torch.Tensor:
+    """EP on the flat tokens x (1…, N, D), held once along every axis, as the
+    reference lays them out: padded at the end to a multiple of the engine
+    count (the padding routed too), split into contiguous blocks over
+    (data axes…, model), each engine routing its own.  Returns (1…, N, D),
+    every engine's output gathered."""
+    n_axes, n_tok, d = len(mesh.axis_names), x.shape[-2], x.shape[-1]
+    n_pad = -(-n_tok // mesh.num_engines) * mesh.num_engines  # decode batches can be smaller than the engine count
+    if n_pad != n_tok:
+        x = torch.cat([x, x.new_zeros((*x.shape[:n_axes], n_pad - n_tok, d))], n_axes)
+    axes = _token_axes(m, mesh)
+    x = mesh.enter(x)
+    for name in axes:  # block (g, i) of the tokens laid out over (data axes…, model): row-major
+        x = own_block(mesh, x, name, n_axes)
+    out = gather_dim(mesh, _ep_engines(m, lp, x, router, mesh, e_l), axes, n_axes)
+    return out.narrow(n_axes, 0, n_tok)
+
+
+def _moe_ep(m: MoEConfig, lp: dict, x: torch.Tensor, mesh) -> torch.Tensor:
+    """Expert parallelism over `mesh`'s `m.ep_axis`.  x: (N, D), the whole
+    token batch on every process; `lp`'s expert stacks laid out on the mesh
+    (`shard_experts`), its router whole.  Returns (N, D), gathered from
+    every engine."""
+    e_l = _ep_slab_width(m, lp, mesh)
+    lead = (1,) * len(mesh.axis_names)
+    out = _ep_flat(m, lp, x.view(*lead, *x.shape), lp["router"].view(*lead, *lp["router"].shape), mesh, e_l)
+    return out.reshape(x.shape)
+
+
+def moe_ep_rows(m: MoEConfig, lp: dict, x: torch.Tensor, router: torch.Tensor, batch: tuple[str, ...],
+                mesh) -> torch.Tensor:
+    """EP on token rows laid out as `models.dense_mesh` holds its residual:
+    x (local engines…, B_l, S, D), the B rows split over the mesh axes
+    `batch` (in the mesh's order; empty: every engine holds them all) and
+    held once along the others; `lp`'s expert stacks laid out by
+    `shard_experts`; router (1…, D, E), whole and held once.  Returns the
+    routed output in x's layout.
+
+    The reference routes the flat B·S tokens, padded to a multiple of the
+    engine count and split into contiguous blocks over (data axes…, model),
+    and sizes each engine's capacities from its block.  Where the rows split
+    over every data axis and B_l·S divides over "model", engine (g, i)'s
+    block is block i of data row g's own tokens: each engine takes it from
+    the rows it holds, and the output is gathered over "model" only.
+    Anywhere else (a one-slot prompt held once along "data", a decode batch
+    smaller than the engine count, a B_l·S that "model" does not divide)
+    the rows are gathered over `batch` first, routed as `moe_block` routes a
+    whole batch, and each engine takes its own rows of the output."""
+    e_l = _ep_slab_width(m, lp, mesh)
+    n_axes, axes = len(mesh.axis_names), _token_axes(m, mesh)
+    b_l, s, d = x.shape[-3:]
+    flat = x.reshape(*x.shape[:n_axes], b_l * s, d)
+    if tuple(batch) == axes[:-1] and (b_l * s) % mesh.shape[m.ep_axis] == 0:
+        own = own_block(mesh, mesh.enter(flat, m.ep_axis), m.ep_axis, n_axes)
+        out = _ep_engines(m, lp, own, router, mesh, e_l)
+        return gather_dim(mesh, out, (m.ep_axis,), n_axes).reshape(x.shape)
+    whole = gather_dim(mesh, flat, tuple(batch), n_axes) if batch else flat
+    out = _ep_flat(m, lp, whole, router, mesh, e_l)
+    out = out.reshape(*out.shape[:n_axes], -1, s, d)
+    if batch:
+        out = mesh.enter(out, batch)
+        for name in batch:
+            out = own_block(mesh, out, name, n_axes)
+    return out
 
 
 # ------------------------------ public block -------------------------------

@@ -16,7 +16,9 @@ reference's.
 What changes: eager PyTorch has no GSPMD and no ambient mesh.  The mesh is an
 explicit argument (`graph.distributed.EngineMesh`, the caller's), and a
 tensor is laid out on it by `shard_tensor` and put back whole by
-`unshard_tensor`, where the reference leaves that to `jax.jit`.  So
+`unshard_tensor`, where the reference leaves that to `jax.jit`; inside a
+per-engine body `gather_dim` reassembles a dim split over some axes and
+`own_block` cuts one out, each with its transpose.  So
 `constrain`, the activation helpers (`act_*`), `active_mesh` and
 `compat_shard_map` are not ported: a model path that runs on a mesh takes it
 as `mesh=` and runs its per-engine body over the mesh's local-engine axes.
@@ -30,7 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["P", "MeshRules", "axis_if_divisible", "laid_out_shape", "shard_tensor", "unshard_tensor"]
+__all__ = ["P", "MeshRules", "axis_if_divisible", "laid_out_shape", "shard_tensor", "unshard_tensor", "gather_dim",
+           "own_block"]
 
 
 class P(tuple):
@@ -215,3 +218,42 @@ def unshard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
         order += [axis_dim[a] for a in axes] + [n + i]
     unused = [axis_dim[a] for a in mesh.axis_names if a not in used]
     return x.permute(*order, *unused).reshape(whole)
+
+
+# ------------------------- inside the per-engine work --------------------------
+
+
+def gather_dim(mesh, t: torch.Tensor, axes: tuple[str, ...], dim: int) -> torch.Tensor:
+    """`t` (local engines…, …), its dim `dim` (absolute) split over `axes` in
+    that order (`shard_tensor`'s layout): the whole dim, held once along
+    `axes`.  On "process_group" `all_gather` along each axis first; on
+    "stacked" the blocks are already there, and both reassemble the dim by
+    one reshape.  The transpose hands each engine its block of the
+    cotangent."""
+    n = len(mesh.axis_names)
+    for a in axes:
+        t = mesh.all_gather(t, a)
+    idx = [mesh.axis_index(a) for a in axes]
+    others = [i for i in range(n) if i not in idx]
+    order = others + list(range(n, dim)) + idx + list(range(dim, t.dim()))
+    t = t.permute(order)
+    k = len(others) + dim - n
+    shape = list(t.shape)
+    t = t.reshape(*shape[:k], -1, *shape[k + len(idx) + 1:])
+    for i in sorted(idx):
+        t = t.unsqueeze(i)
+    return t
+
+
+def own_block(mesh, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """`t` (local engines…, …), the same on every engine along `axis` (its
+    local axis full there: entered), cut along `dim` (absolute) into the
+    axis's size blocks: each engine's block at its coordinate."""
+    a, size = mesh.axis_index(axis), mesh.shape[axis]
+    t = t.unflatten(dim, (size, t.shape[dim] // size))
+    local = mesh.local_coords(axis)  # consecutive: every coordinate on "stacked", one on "process_group"
+    coords = torch.arange(int(local[0]), int(local[0]) + len(local), device=t.device)  # no host copy: capturable
+    shape = [1] * t.dim()
+    shape[a] = len(coords)
+    index = coords.view(shape).expand(*t.shape[:dim], 1, *t.shape[dim + 1:])
+    return torch.gather(t, dim, index).squeeze(dim)

@@ -15,21 +15,25 @@ What changes:
     attention forward kernel runs twice a layer in a training step (an MoE
     layer routes twice too, and logs its routing once:
     `moe.checkpoint_contexts`).  There is no ambient mesh: `forward`,
-    `loss_fn`, `prefill` and the decode steps take `mesh=`.  With `cfg.moe`
-    they hand it to the MoE block (impl="ep_shardmap" runs over it) and run
-    the rest of the model whole on every process; for EP the expert stacks
-    are laid out on the mesh (`shard_params`: (local engines…, L, e_l, ·,
-    ·)).  A dense model's `forward` and `loss_fn` on a mesh are Megatron TP
-    or FSDP as `cfg.rules` says (`models.dense_mesh`): every leaf laid out
-    by `shard_params` as `param_specs` says, (local engines…, [L,] block…),
-    and whole params refused.  A laid-out stack's layer axis follows the
-    local-engine prefix, and the split and the recompute carry it along.
-    A dense model's `prefill` and decode steps on a mesh serve the same way
-    over a KV cache laid out as `kv_cache_specs` says (`init_kv_cache(...,
-    mesh=)`: (local engines…, L, B_l, max_seq, Hkv_l, dh), stored
-    layer-major), whole params or a whole cache refused; `prefill(...,
-    slot=)` writes one prompt into one row of a cache of several, on a mesh
-    only where an engine's block holds it.
+    `loss_fn`, `prefill` and the decode steps take `mesh=`.  A dense
+    model's `forward` and `loss_fn` on a mesh are Megatron TP or FSDP as
+    `cfg.rules` says (`models.dense_mesh`): every leaf laid out by
+    `shard_params` as `param_specs` says, (local engines…, [L,] block…), and
+    whole params refused.  An MoE model with impl="ep_shardmap" under tp_sp
+    runs the same layer with its FFN by EP over "model" on each engine's
+    own tokens (`moe.moe_ep_rows`): attention, norms, embedding, lm_head,
+    router and shared expert laid out by `param_specs`, the expert stacks
+    by `moe.shard_experts` ((local engines…, L, e_l, ·, ·), the padded
+    count).  An MoE model under "fsdp" on a mesh is refused (not ported);
+    one with impl="local" ignores the mesh and takes whole params.  A
+    laid-out stack's layer axis follows the local-engine prefix, and the
+    split and the recompute carry it along.  `prefill` and the decode
+    steps of a model laid out on a mesh serve the same way over a KV cache
+    laid out as `kv_cache_specs` says (`init_kv_cache(..., mesh=)`: (local
+    engines…, L, B_l, max_seq, Hkv_l, dh), stored layer-major), whole params
+    or a whole cache refused; `prefill(..., slot=)` writes one prompt into
+    one row of a cache of several, on a mesh only where an engine's block
+    holds it.
   * `TransformerConfig.rules`, `param_specs` and `kv_cache_specs` are the
     reference's, over `models.sharding`'s `P` (a mesh, where given, is read
     for its axis sizes only).
@@ -49,8 +53,8 @@ What changes:
   * `cast_params` keeps one `cfg.dtype` copy of every weight instead of the
     `.astype(h.dtype)` at every use: bit-identical, and a decode step then
     reads half the bytes.
-  * With `cfg.moe` the FFN is `models.moe.moe_block` (`impl="local"`, or
-    `"ep_shardmap"` over the `mesh` given) on the normed input;
+  * With `cfg.moe` the FFN is `models.moe.moe_block` (`impl="local"`; on a
+    mesh, `"ep_shardmap"`'s `moe.moe_ep_rows`) on the normed input;
     `cast_params` keeps the router in its own type, because the router
     computes in float32 (a bf16 copy would change its logits).
 """
@@ -227,54 +231,94 @@ def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | 
     }
 
 
-def _dense_mesh(cfg: TransformerConfig, mesh) -> bool:
-    """Whether a dense model runs on `mesh` (`models.dense_mesh`, every leaf
-    and the KV cache laid out); an MoE model hands the mesh to its MoE
-    blocks only and keeps the rest, the cache too, whole."""
-    return mesh is not None and cfg.moe is None
+def _laid_out(cfg: TransformerConfig, mesh) -> bool:
+    """Whether the model runs on `mesh` with every leaf and the KV cache laid
+    out (`models.dense_mesh`): a dense model, or an MoE model with
+    impl="ep_shardmap" under tp_sp (its experts by EP over "model").  An MoE
+    model with impl="local" keeps everything whole and ignores the mesh,
+    under either strategy.  An EP MoE model under "fsdp" on a mesh is
+    refused: ROADMAP.md, Queue A 9b item 8b."""
+    if mesh is None:
+        return False
+    if cfg.moe is None:
+        return True
+    if not _ep(cfg):
+        return False
+    if cfg.rules.strategy == "fsdp":
+        raise NotImplementedError("an EP MoE model on a mesh under the 'fsdp' strategy is not ported (ROADMAP.md, "
+                                  "Queue A 9b item 8b, the reference's FSDP layout of the expert stacks); use "
+                                  "MeshRules(strategy='tp_sp')")
+    return True
 
 
 def _ep(cfg: TransformerConfig) -> bool:
     return cfg.moe is not None and cfg.moe.impl == "ep_shardmap"
 
 
+def _layout_specs(cfg: TransformerConfig, mesh) -> dict:
+    """The spec tree of the params as `shard_params` lays them out on `mesh`:
+    `param_specs(cfg, mesh)`, with EP's expert stacks by `moe.ep_specs` (over
+    the padded count), the layout EP takes."""
+    specs = param_specs(cfg, mesh)
+    if cfg.moe is not None:
+        specs["layers"].update(moe_lib.ep_specs(cfg.moe, prefix=1))
+    return specs
+
+
+def _whole_shapes(cfg: TransformerConfig, mesh) -> dict:
+    """{leaf path: whole shape} of the tree `shard_params` lays out, the
+    expert stacks padded to a multiple of the EP axis."""
+    shapes = {("embed",): (cfg.vocab, cfg.d_model), ("final_norm",): (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        shapes[("lm_head",)] = (cfg.d_model, cfg.vocab)
+    for k, s in layer_shapes(cfg).items():
+        if cfg.moe is not None and k in moe_lib.EXPERT_KEYS:
+            s = (cfg.moe.padded_experts(mesh.shape[cfg.moe.ep_axis]), *s[1:])
+        shapes[("layers", k)] = (cfg.n_layers, *s)
+    return shapes
+
+
 def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
-    """The tree as the model takes it on `mesh`.  Dense: every leaf laid out
-    by `sharding.shard_tensor` as `param_specs(cfg, mesh)` says (a replicated
-    leaf as (1…, ·)), for Megatron TP or FSDP.  With `cfg.moe`: for EP the
-    layer-stacked expert stacks laid out by `moe.shard_experts` (this
-    process's experts only), every other leaf whole and shared, not copied;
-    without EP, `params`.  A laid-out stack keeps the layers outermost in
-    memory, (local engines…, L, ·…) stored layer-major: one layer's block is
-    then contiguous over the local engines, as the layers read it, and not
-    copied every layer."""
+    """The tree as the model takes it on `mesh`: every leaf laid out by
+    `sharding.shard_tensor` (a replicated leaf as (1…, ·)) — a dense model
+    as `param_specs(cfg, mesh)` says, for Megatron TP or FSDP; an MoE model
+    with impl="ep_shardmap" (tp_sp) the same, its expert stacks by
+    `moe.shard_experts` (padded, this process's experts only).  An MoE model
+    with impl="local": `params`.  A laid-out stack keeps the layers
+    outermost in memory, (local engines…, L, ·…) stored layer-major: one
+    layer's block is then contiguous over the local engines, as the layers
+    read it, and not copied every layer."""
+    if not _laid_out(cfg, mesh):
+        return params
     n = len(mesh.axis_names)
 
     def layer_major(t: torch.Tensor) -> torch.Tensor:
         return t.movedim(n, 0).contiguous().movedim(0, n)
 
-    if cfg.moe is not None:
-        if not _ep(cfg):
-            return params
-        layers = moe_lib.shard_experts(cfg.moe, params["layers"], mesh, prefix=1)
-        for k in moe_lib.EXPERT_KEYS:
-            layers[k] = layer_major(layers[k])
-        return dict(params, layers=layers)
-    specs = param_specs(cfg, mesh)
+    specs = _layout_specs(cfg, mesh)
+    layers = dict(params["layers"])
+    if cfg.moe is not None:  # the experts padded and laid out; the other leaves passed on whole
+        layers = moe_lib.shard_experts(cfg.moe, layers, mesh, prefix=1)
     out = {k: shard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: layer_major(shard_tensor(v, specs["layers"][k], mesh)) for k, v in params["layers"].items()}
+    experts = moe_lib.EXPERT_KEYS if cfg.moe is not None else ()
+    out["layers"] = {}
+    for k in list(layers):  # one leaf's intermediate copy alive at a time
+        v = layers.pop(k)
+        out["layers"][k] = layer_major(v if k in experts else shard_tensor(v, specs["layers"][k], mesh))
     return out
 
 
 def unshard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
-    """The inverse of `shard_params` (a gradient tree too): whole leaves."""
-    if cfg.moe is not None:
-        if not _ep(cfg):
-            return params
-        return dict(params, layers=moe_lib.unshard_experts(cfg.moe, params["layers"], mesh, prefix=1))
-    specs = param_specs(cfg, mesh)
+    """The inverse of `shard_params` (a gradient tree too): whole leaves, the
+    padded experts dropped."""
+    if not _laid_out(cfg, mesh):
+        return params
+    specs = _layout_specs(cfg, mesh)
     out = {k: unshard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: unshard_tensor(v, specs["layers"][k], mesh) for k, v in params["layers"].items()}
+    layers = {k: unshard_tensor(v, specs["layers"][k], mesh) for k, v in params["layers"].items()}
+    if cfg.moe is not None:
+        layers.update({k: layers[k].narrow(1, 0, cfg.moe.num_experts) for k in moe_lib.EXPERT_KEYS})
+    out["layers"] = layers
     return out
 
 
@@ -282,32 +326,35 @@ def sharded_specs(cfg: TransformerConfig, mesh) -> dict:
     """{leaf path: spec} of the leaves `shard_params` lays out on `mesh` (the
     optimizer's global norm adds their squares over the engines that split
     them, and counts a replicated one once)."""
-    if cfg.moe is not None:
-        if not _ep(cfg):
-            return {}
-        return {("layers", k): spec for k, spec in moe_lib.ep_specs(cfg.moe, prefix=1).items()}
-    specs = param_specs(cfg, mesh)
+    if not _laid_out(cfg, mesh):
+        return {}
+    specs = _layout_specs(cfg, mesh)
     out = {(k,): spec for k, spec in specs.items() if k != "layers"}
     out.update({("layers", k): spec for k, spec in specs["layers"].items()})
     return out
 
 
 def _laid_out_specs(params: dict, cfg: TransformerConfig, mesh) -> dict:
-    """`param_specs(cfg, mesh)`; raises unless every leaf of `params` is laid
-    out on `mesh` as `shard_params` lays it."""
-    specs = param_specs(cfg, mesh)
-    whole = {"embed": (cfg.vocab, cfg.d_model), "final_norm": (cfg.d_model,)}
-    if not cfg.tie_embeddings:
-        whole["lm_head"] = (cfg.d_model, cfg.vocab)
-    leaves = [((k,), params[k], whole[k], specs[k]) for k in whole]
-    leaves += [(("layers", k), params["layers"][k], (cfg.n_layers, *s), specs["layers"][k])
-               for k, s in layer_shapes(cfg).items()]
-    for path, v, shape, spec in leaves:
+    """`_layout_specs(cfg, mesh)`; raises unless every leaf of `params` is
+    laid out on `mesh` as `shard_params` lays it."""
+    specs = _layout_specs(cfg, mesh)
+    for path, shape in _whole_shapes(cfg, mesh).items():
+        v, spec = (params[path[0]], specs[path[0]]) if len(path) == 1 else (params["layers"][path[1]],
+                                                                            specs["layers"][path[1]])
         want = laid_out_shape(shape, spec, mesh)
         if tuple(v.shape) != want:
-            raise ValueError(f"a dense model on a mesh takes its params laid out on it (transformer.shard_params): "
+            raise ValueError(f"a model on a mesh takes its params laid out on it (transformer.shard_params): "
                              f"{'/'.join(path)} is {tuple(v.shape)}, want {want}")
     return specs
+
+
+def _whole_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """`params` where they are whole (an MoE model with impl="local" ignores
+    the mesh); raises for params laid out on it."""
+    if mesh is not None and params["embed"].dim() != 2:
+        raise NotImplementedError(f"MoE impl={cfg.moe.impl!r} takes whole params; these are laid out on the mesh "
+                                  "(transformer.shard_params lays them out for impl='ep_shardmap' under tp_sp only)")
+    return params
 
 
 def _laid_out_cache_spec(cache: dict, cfg: TransformerConfig, mesh):
@@ -321,7 +368,7 @@ def _laid_out_cache_spec(cache: dict, cfg: TransformerConfig, mesh):
         want = laid_out_shape((cfg.n_layers, got[n + 1], got[n + 2], cfg.n_kv_heads, cfg.head_dim), spec, mesh)
         if got[:n + 1] + got[n + 3:] == want[:n + 1] + want[n + 3:]:
             return spec
-    raise ValueError(f"a dense model on a mesh takes its KV cache laid out on it (init_kv_cache(..., mesh=)): k is "
+    raise ValueError(f"a model on a mesh takes its KV cache laid out on it (init_kv_cache(..., mesh=)): k is "
                      f"{got}, v {tuple(cache['v'].shape)}, by the spec {spec}")
 
 
@@ -343,10 +390,10 @@ def _out_proj(cfg: TransformerConfig, lp: dict, out: torch.Tensor, x: torch.Tens
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(x.dtype)
 
 
-def _ffn_block(cfg: TransformerConfig, lp: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
+def _ffn_block(cfg: TransformerConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"])
     if cfg.moe is not None:
-        return moe_lib.moe_block(cfg.moe, lp, h, mesh=mesh)
+        return moe_lib.moe_block(cfg.moe, lp, h)
     g = h @ lp["w_gate"].to(h.dtype)
     u = h @ lp["w_up"].to(h.dtype)
     return (F.silu(g) * u) @ lp["w_down"].to(h.dtype)
@@ -360,7 +407,7 @@ def _causal_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
     )
 
 
-def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None, mesh=None):
+def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None):
     """One layer over a whole prompt from position 0; with `cache_kv` =
     (ck, cv) of (B, max_seq, Hkv, dh) the new rows are written there."""
     q, k, v = _qkv(cfg, lp, x)
@@ -374,7 +421,7 @@ def _prompt_layer(cfg: TransformerConfig, x, lp, cos, sin, cache_kv=None, mesh=N
         # what the JAX model reads back from the cache (a no-op cast when it is q's type)
         k, v = k.to(ck.dtype).to(q.dtype), v.to(cv.dtype).to(q.dtype)
     x = x + _out_proj(cfg, lp, _causal_attention(cfg, q, k, v), x)
-    return x + _ffn_block(cfg, lp, x, mesh)
+    return x + _ffn_block(cfg, lp, x)
 
 
 def _layer_axis(key: str, v: torch.Tensor) -> int:
@@ -407,30 +454,31 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, V).  `mesh`: the engine mesh an MoE
-    layer with impl="ep_shardmap" runs on (the rest of an MoE model ignores
-    it); a dense model's Megatron TP / FSDP mesh (`models.dense_mesh`: its
-    params laid out by `shard_params`, the logits whole on every process)."""
-    if _dense_mesh(cfg, mesh):
+    """tokens (B, S) → logits (B, S, V).  `mesh`: the engine mesh a dense
+    model (Megatron TP / FSDP) or an MoE model with impl="ep_shardmap"
+    (tp_sp: TP attention, EP experts) runs on (`models.dense_mesh`: its
+    params laid out by `shard_params`, the logits whole on every process);
+    an MoE model with impl="local" ignores it."""
+    if _laid_out(cfg, mesh):
         specs = _laid_out_specs(params, cfg, mesh)
         return dense_mesh.forward(params, _layers(params, cfg.n_layers), tokens, cfg, mesh, specs)
-    x = _embed(params, tokens, cfg)
+    x = _embed(_whole_params(params, cfg, mesh), tokens, cfg)
     cos, sin = rope_table(x.shape[1], cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in _layers(params, cfg.n_layers):
         if remat:
-            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, None, mesh, use_reentrant=False,
+            x = checkpoint(_prompt_layer, cfg, x, lp, cos, sin, use_reentrant=False,
                            context_fn=moe_lib.checkpoint_contexts)
         else:
-            x = _prompt_layer(cfg, x, lp, cos, sin, mesh=mesh)
+            x = _prompt_layer(cfg, x, lp, cos, sin)
     return _head(params, x, cfg)
 
 
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
     """The mean token cross-entropy in float32 (`valid`, where given, masks
-    tokens); on a dense model's mesh the vocab-parallel one of
-    `models.dense_mesh`, the same on every process."""
-    if _dense_mesh(cfg, mesh):
+    tokens); on a mesh the vocab-parallel one of `models.dense_mesh`, the
+    same on every process."""
+    if _laid_out(cfg, mesh):
         specs = _laid_out_specs(params, cfg, mesh)
         return dense_mesh.loss_fn(params, _layers(params, cfg.n_layers), batch, cfg, mesh, specs)
     logits = forward(params, batch["tokens"], cfg, mesh=mesh)
@@ -444,12 +492,13 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *, mesh=None) -> 
 
 
 def kv_cache_shape(cfg: TransformerConfig, batch: int, max_seq: int, mesh=None) -> tuple[int, ...]:
-    """The KV cache's (L, batch, max_seq, Hkv, dh); for a dense model on
-    `mesh`, laid out as `kv_cache_specs` says: (local engines…, L, B_l,
-    max_seq, Hkv_l, dh).  Raises where `batch` does not divide over the
-    rules' batch axes (the spec splits it over them, as the reference's)."""
+    """The KV cache's (L, batch, max_seq, Hkv, dh); for a model laid out on
+    `mesh` (dense, or MoE with impl="ep_shardmap"), as `kv_cache_specs`
+    says: (local engines…, L, B_l, max_seq, Hkv_l, dh).  Raises where
+    `batch` does not divide over the rules' batch axes (the spec splits it
+    over them, as the reference's)."""
     whole = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    if not _dense_mesh(cfg, mesh):
+    if not _laid_out(cfg, mesh):
         return whole
     spec = kv_cache_specs(cfg, mesh)["k"]
     batch_axes = tuple(spec)[1]
@@ -481,8 +530,9 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.
 def unshard_kv_cache(cache: dict, cfg: TransformerConfig, mesh) -> dict:
     """The whole cache (L, B, max_seq, Hkv, dh) of one laid out by
     `init_kv_cache(..., mesh=)` (on "process_group" gathered from every
-    rank); with `cfg.moe`, `cache` itself."""
-    if not _dense_mesh(cfg, mesh):
+    rank); where the model keeps it whole (MoE with impl="local"), `cache`
+    itself."""
+    if not _laid_out(cfg, mesh):
         return cache
     specs = kv_cache_specs(cfg, mesh)
     return {k: unshard_tensor(v, specs[k], mesh) for k, v in cache.items()}
@@ -492,22 +542,22 @@ def prefill(params: dict, tokens, cache: dict, cfg: TransformerConfig, *, mesh=N
     """Prefill the cache with a full prompt from position 0 (written in
     place); returns (last_logits (B, V), cache).  `slot`: one prompt (1, P)
     written into row `slot` of a cache of several rows (the serving
-    engine's admission).  A dense model on `mesh` takes its params laid out
-    by `shard_params` and its cache by `init_kv_cache(..., mesh=)`
+    engine's admission).  A model laid out on `mesh` takes its params laid
+    out by `shard_params` and its cache by `init_kv_cache(..., mesh=)`
     (`models.dense_mesh.prefill`)."""
-    if _dense_mesh(cfg, mesh):
+    if _laid_out(cfg, mesh):
         specs = _laid_out_specs(params, cfg, mesh)
         spec = _laid_out_cache_spec(cache, cfg, mesh)
         return dense_mesh.prefill(params, _layers(params, cfg.n_layers), tokens, cache, cfg, mesh, specs, spec,
                                   slot), cache
     rows = cache if slot is None else {k: v[:, slot:slot + 1] for k, v in cache.items()}  # views: written in place
-    x = _embed(params, tokens, cfg)
+    x = _embed(_whole_params(params, cfg, mesh), tokens, cfg)
     s = x.shape[1]
     if s > rows["k"].shape[2]:
         raise ValueError(f"prompt of {s} tokens exceeds the cache's {rows['k'].shape[2]} positions")
     cos, sin = rope_table(s, cfg.head_dim, theta=cfg.rope_theta, device=x.device)
     for i in range(cfg.n_layers):
-        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (rows["k"][i], rows["v"][i]), mesh)
+        x = _prompt_layer(cfg, x, _layer(params, i), cos, sin, (rows["k"][i], rows["v"][i]))
     return _head(params, x[:, -1], cfg), cache
 
 
@@ -520,11 +570,11 @@ def _mesh_decode(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig,
 
 def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """One decode step: tokens (B, 1) at absolute position `pos` (an int, the
-    same for every row).  Returns (logits (B, V), cache).  A dense model on
-    `mesh`: `decode_step_batched_pos` with every row at `pos`."""
-    if _dense_mesh(cfg, mesh):
+    same for every row).  Returns (logits (B, V), cache).  A model laid out
+    on `mesh`: `decode_step_batched_pos` with every row at `pos`."""
+    if _laid_out(cfg, mesh):
         return _mesh_decode(params, cache, torch.full((len(tokens),), int(pos), dtype=torch.long), tokens, cfg, mesh)
-    x = _embed(params, tokens, cfg)  # (B, 1, D)
+    x = _embed(_whole_params(params, cfg, mesh), tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]
     pos = int(pos)
@@ -542,18 +592,18 @@ def decode_step(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, 
         cv[:, at] = v[:, 0].to(cv.dtype)
         out = gqa_attention(q, ck, cv, causal=True, q_offset=pos, kv_valid_len=valid)
         x = x + _out_proj(cfg, lp, out, x)
-        x = x + _ffn_block(cfg, lp, x, mesh)
+        x = x + _ffn_block(cfg, lp, x)
     return _head(params, x, cfg)[:, -1], cache
 
 
 def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: TransformerConfig, *, mesh=None):
     """Continuous-batching decode: every slot at its own position.
-    pos: (B,) absolute write positions; tokens: (B, 1).  A dense model on
-    `mesh` takes its params and cache laid out (`models.dense_mesh.decode`:
+    pos: (B,) absolute write positions; tokens: (B, 1).  A model laid out
+    on `mesh` takes its params and cache laid out (`models.dense_mesh.decode`:
     the rows split as the cache's batch, which B must divide over)."""
-    if _dense_mesh(cfg, mesh):
+    if _laid_out(cfg, mesh):
         return _mesh_decode(params, cache, pos, tokens, cfg, mesh)
-    x = _embed(params, tokens, cfg)  # (B, 1, D)
+    x = _embed(_whole_params(params, cfg, mesh), tokens, cfg)  # (B, 1, D)
     b = x.shape[0]
     max_seq = cache["k"].shape[2]
     pos = torch.as_tensor(pos, device=x.device).long()
@@ -576,5 +626,5 @@ def decode_step_batched_pos(params: dict, cache: dict, pos, tokens, cfg: Transfo
         cv[rows, at] = v[:, 0].to(cv.dtype)
         out = gqa_attention(q, ck, cv, causal=False, kv_valid_len=pos + 1)
         x = x + _out_proj(cfg, lp, out, x)
-        x = x + _ffn_block(cfg, lp, x, mesh)
+        x = x + _ffn_block(cfg, lp, x)
     return _head(params, x, cfg)[:, -1], cache

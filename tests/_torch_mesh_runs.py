@@ -1,7 +1,8 @@
 """The port's engine mesh over gloo on the CPU, for `tests/test_torch_distributed.py`,
 `tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`,
 `tests/test_torch_recsys_psum.py`, `tests/test_torch_transformer_tp_serve.py`
-(the `dense_tp_serve` job: logits, and each rank's KV cache block) and their
+and `tests/test_torch_moe_tp_serve.py` (the `dense_tp_serve` and
+`moe_tp_serve` jobs: logits, and each rank's KV cache block) and their
 training counterparts (`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`
 and `tests/test_torch_transformer_tp.py`, the `*_train` jobs:
 every gradient and the params after one AdamW step, by leaf path; a rank
@@ -208,8 +209,9 @@ def halo_train_runs(mesh) -> dict:
 
 
 def moe_ep_train_runs(mesh) -> dict:
-    """One training step of the smoke olmoe-1b-7b with EP (its expert stacks
-    laid out by `shard_params`, the recompute on), and the gradients of one
+    """One training step of the smoke olmoe-1b-7b with EP (every leaf laid
+    out by `shard_params`: TP attention, EP experts; the recompute on), and
+    the gradients of one
     EP block of 5 experts (padded to 6) top-2 with a shared expert at
     capacity_factor 1.25 (slots drop) with respect to its weights and its
     tokens."""
@@ -344,12 +346,50 @@ def dense_tp_serve_runs(mesh) -> dict:
     return out | {"engines": mesh.local_engines}
 
 
+def moe_tp_serve_runs(mesh) -> dict:
+    """Serving the smoke olmoe-1b-7b and qwen2-moe-a2.7b with EP under tp_sp
+    (every leaf and the KV cache laid out: Megatron TP attention, EP experts)
+    at capacity_factor 1.25: a prefill of 8 rows (each engine routing block i
+    of its data row's own tokens), a `decode_step`, two
+    `decode_step_batched_pos` steps (8 tokens on 4 engines: gathered over
+    "data", routed as the reference lays them) and a one-slot prefill of 7
+    tokens into slot 5 of a fresh cache (held once along "data"): the logits,
+    whole, and the local cache blocks."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(23)
+    out = {}
+    for name in ("olmoe-1b-7b", "qwen2-moe-a2.7b"):
+        cfg = get_arch(name).smoke_config()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
+        params = tfm.shard_params(tfm.init_params(cfg, 3, device="cpu"), cfg, mesh)
+        cache = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 9)))
+        offs = torch.from_numpy(rng.integers(0, 3, 8))
+        steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))) for _ in range(3)]
+        with torch.no_grad():
+            run = {"prefill": tfm.prefill(params, toks, cache, cfg, mesh=mesh)[0],
+                   "decode": tfm.decode_step(params, cache, 9, steps[0], cfg, mesh=mesh)[0]}
+            for i in range(2):
+                run[f"batched{i}"] = tfm.decode_step_batched_pos(params, cache, 10 + offs + i, steps[i + 1], cfg,
+                                                                 mesh=mesh)[0]
+            run["cache_k"], run["cache_v"] = cache["k"], cache["v"]
+            slot = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+            run["slot_logits"] = tfm.prefill(params, toks[1:2, :7], slot, cfg, mesh=mesh, slot=5)[0]
+            run["slot_cache_k"] = slot["k"]
+        out.update({f"{name}/{k}": v.numpy() for k, v in run.items()})
+    return out | {"engines": mesh.local_engines}
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
         "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
         "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs,
-        "dense_tp_serve": dense_tp_serve_runs}
+        "dense_tp_serve": dense_tp_serve_runs, "moe_tp_serve": moe_tp_serve_runs}
 JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train",
-           "dense_tp_serve")
+           "dense_tp_serve", "moe_tp_serve")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):

@@ -11,10 +11,11 @@ must be within 2e-5 (the reference's own bound for EP against local,
 in both stages: EP then differs from the local path) and 4.0 (nothing drops:
 EP equals local), on meshes (1, 4), (2, 2) and (2, 4), with 6 experts padded
 to 8, with and without a shared expert; a decode of 3 tokens on 8 engines;
-the smoke olmoe and qwen2-moe forwards with EP at 4.0 against the reference's
-forward; a gloo run of 4 ranks on a 2 × 2 mesh bit-equal to stacked; the
-refusal without a mesh; and EP's plain version, `moe_ep_loop_ref`, against
-both the reference and the port, slot counts included."""
+the smoke olmoe and qwen2-moe forwards with EP at 4.0 (every leaf and the KV
+cache laid out: TP attention, EP experts) against the reference's forward; a
+gloo run of 4 ranks on a 2 × 2 mesh bit-equal to stacked; the refusal without
+a mesh; and EP's plain version, `moe_ep_loop_ref`, against both the reference
+and the port, slot counts included."""
 import dataclasses
 import functools
 
@@ -182,7 +183,7 @@ def test_smoke_forward_with_ep_matches_the_reference_forward(arch):
     with torch.no_grad():  # prefill and a decode step take the mesh too
         mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
         sharded = tfm.shard_params(p, cfg, mesh)
-        cache = tfm.init_kv_cache(cfg, 2, 20, dtype=torch.float32, device="cpu")
+        cache = tfm.init_kv_cache(cfg, 2, 20, dtype=torch.float32, device="cpu", mesh=mesh)
         lg, _ = tfm.prefill(sharded, torch.from_numpy(toks), cache, cfg, mesh=mesh)
         np.testing.assert_allclose(lg.numpy(), want[:, -1], **MODEL_TOL)
         step, _ = tfm.decode_step(sharded, cache, 16, torch.from_numpy(toks[:, :1]), cfg, mesh=mesh)

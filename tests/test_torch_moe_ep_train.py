@@ -11,16 +11,18 @@ inputs, in float32.
   and without the shared expert: each within 1e-4 of its largest entry (the
   forward is within the reference's own 2e-5; the engines' partial
   gradients of the router and the slab are summed in another order);
-* the smoke qwen2-moe-a2.7b (a shared expert) with EP on (2, 2), the
+* the smoke qwen2-moe-a2.7b (a shared expert) with EP on (2, 2), every leaf
+  laid out (Megatron TP attention and shared expert, EP experts), the
   recompute on, at capacity_factor 4.0 (nothing drops): the loss within
   1e-5 relative and every gradient within 1e-4 of its largest entry against
   `jax.grad` of the reference's loss (whose forward, with no mesh, runs the
   local path: the same function);
 * `moe_block.ep_log` holds one entry a layer a forward under the recompute;
 * one AdamW step over gloo (4 spawned ranks on a 2 × 2 mesh, a permutation
-  that is not the identity) and on the stacked mesh: every gradient and
-  every updated weight bit-equal, a rank holding the whole of a replicated
-  leaf and its own block of an expert stack; and an EP block of 5 experts
+  that is not the identity) and on the stacked mesh, every leaf laid out
+  (TP attention, EP experts): every gradient and every updated weight
+  bit-equal, a rank holding its own block of each leaf (the whole of a
+  replicated one); and an EP block of 5 experts
   (padded to 6) with a shared expert at 1.25, its gradients with respect to
   its weights and tokens bit-equal the same way.
 """
@@ -123,6 +125,7 @@ def test_transformer_loss_and_grads_with_ep_match_jax_grad(arch):
     for t in leaves:
         t.requires_grad_(True)
     assert cfg.remat and sharded["layers"]["we_gate"].dim() == 6  # (data, model, layers, e_l, D, F)
+    assert sharded["layers"]["wq"].shape[:2] == (2, 2)  # every leaf laid out: (data, model, layers, D / 2, ·)
     loss = tfm.loss_fn(sharded, batch, cfg, mesh=mesh)
     grads = torch.autograd.grad(loss, leaves)
     assert abs(float(loss.detach()) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
@@ -158,8 +161,11 @@ def test_gloo_2x2_training_step_is_bit_equal_to_stacked(tmp_path):
     ranks = run_gloo("moe_ep_train", tmp_path)
     want = JOBS["moe_ep_train"](make_job_mesh("moe_ep_train", "stacked"))
     shape = MESH_2D[0]
-    laid = [k for k in want if k.endswith(moe.EXPERT_KEYS) and k != "engines"]
-    assert len(laid) == 3 * 3  # the transformer's grads and updated stacks, the block's grads
+    # every leaf of the transformer laid out (TP attention, EP experts), and the block's expert stacks
+    laid = [k for k in want if k.startswith(("grad/", "param/")) or k.startswith("block/grad/")
+            and k.endswith(moe.EXPERT_KEYS)]
+    assert len([k for k in laid if k.endswith(moe.EXPERT_KEYS)]) == 3 * 3  # the grads and updated stacks, the block's
+    assert want["grad/embed"].shape[:2] == (2, 2) and want["param/layers/attn_norm"].shape[:2] == (1, 1)
     for r, got in enumerate(ranks):
         assert set(got) == set(want)
         (e,) = got["engines"].tolist()

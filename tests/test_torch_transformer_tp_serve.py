@@ -19,8 +19,9 @@ the JAX package, on the same seeded numpy inputs, in float32.
 * `launch.serve.build_engine(..., mesh=)` on stacked (2, 2) serves the
   tokens that `build_engine` without a mesh serves on the same weights;
 * whole params, a whole cache, a slot count or a decode batch that does not
-  divide over the rules' batch axes are refused; an MoE config on a mesh
-  keeps its whole cache (EP only);
+  divide over the rules' batch axes are refused; an MoE config with EP on a
+  mesh lays its cache out as a dense model's (`test_torch_moe_tp_serve.py`
+  holds that path);
 * one gloo run (4 spawned ranks on a 2 × 2 mesh, a permutation that is not
   the identity, `tests/_torch_mesh_runs.py`'s `dense_tp_serve` job): the
   logits and each rank's cache block bit-equal to stacked under "tp_sp", its
@@ -220,21 +221,31 @@ def test_a_batch_that_does_not_divide_over_the_batch_axes_is_refused(strategy, s
 
 
 def test_an_moe_config_on_a_mesh_keeps_its_whole_cache():
+    """The name is from when an MoE config kept its whole cache on a mesh
+    (EP only); under tp_sp with EP its cache is now laid out as a dense
+    model's, and a one-slot prefill writes that slot's row only, equal to
+    one device's prefill of the prompt alone."""
     cfg = get_arch("olmoe-1b-7b").smoke_config()
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
+    local = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="local"))
     mesh = make_mesh((2, 2), AXES, device="cpu")
-    whole = (cfg.n_layers, 3, 16, cfg.n_kv_heads, cfg.head_dim)
-    assert tfm.kv_cache_shape(cfg, 3, 16, mesh) == whole
-    cache = tfm.init_kv_cache(cfg, 3, 16, torch.float32, device="cpu", mesh=mesh)
-    assert tuple(cache["k"].shape) == whole and tfm.unshard_kv_cache(cache, cfg, mesh) is cache
-    params = tfm.shard_params(tfm.init_params(cfg, 0, device="cpu"), cfg, mesh)
+    spec = tfm.kv_cache_specs(cfg, mesh)["k"]
+    laid = (2, 2, cfg.n_layers, 2, 16, cfg.n_kv_heads // 2, cfg.head_dim)  # (data, model, L, B / 2, S, Hkv / 2, dh)
+    assert tuple(spec) == (None, "data", None, "model", None) and tfm.kv_cache_shape(cfg, 4, 16, mesh) == laid
+    cache = tfm.init_kv_cache(cfg, 4, 16, torch.float32, device="cpu", mesh=mesh)
+    assert tuple(cache["k"].shape) == laid and tfm.unshard_kv_cache(cache, cfg, mesh)["k"].shape == (
+        cfg.n_layers, 4, 16, cfg.n_kv_heads, cfg.head_dim)
+    params = tfm.init_params(cfg, 0, device="cpu")
     prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (1, 6)))
     with torch.no_grad():
-        got, _ = tfm.prefill(params, prompt, cache, cfg, mesh=mesh, slot=1)
-        sub = tfm.init_kv_cache(cfg, 1, 16, torch.float32, device="cpu")
-        want, _ = tfm.prefill(params, prompt, sub, cfg, mesh=mesh)  # a one-row cache, as the engine sliced it
-    assert torch.equal(got, want) and torch.equal(cache["k"][:, 1:2], sub["k"])
-    assert not torch.any(cache["k"][:, 0]) and not torch.any(cache["k"][:, 2])
+        got, _ = tfm.prefill(tfm.shard_params(params, cfg, mesh), prompt, cache, cfg, mesh=mesh, slot=1)
+        sub = tfm.init_kv_cache(local, 1, 16, torch.float32, device="cpu")
+        want, _ = tfm.prefill(params, prompt, sub, local)  # one device, a one-row cache
+    whole = tfm.unshard_kv_cache(cache, cfg, mesh)
+    _close(got, want.numpy(), LOGITS_REL, "one-slot prefill")
+    for k in ("k", "v"):
+        _close(whole[k][:, 1:2], sub[k].numpy(), CACHE_REL, f"slot 1's {k}")
+        assert not torch.any(whole[k][:, 0]) and not torch.any(whole[k][:, 2:]), k
 
 
 def test_gloo_2x2_serving_is_bit_equal_to_stacked(tmp_path):
