@@ -307,6 +307,20 @@ Phases, one JSON line each:
              over NCCL at world size 1 bit-equal to stacked; the attention
              kernel at the per-engine prefill shape against its plain
              version, bound and SDPA
+  mesh_moe_fsdp  MoE on (2, 8) under "fsdp" (ZeRO-3 expert stacks
+             gathered into EP's slab at use, each engine routing its own
+             rows): olmoe-1b-7b drained through `build_engine(..., slots=16,
+             mesh=)` and on one device in turns (as mesh_moe_serve's
+             drain); float32 logits and cache at capacity factor E/k within
+             2e-3 of one device's (16 one-slot prefills, 8 decode steps of
+             one row an engine), greedy tokens equal, two runs bit-equal,
+             olmoe's layers 0-1 at 1.25 against `moe_ep_loop_ref`;
+             qwen2-moe over 4 layers the same; olmoe over 2 layers: float32
+             loss and every gradient within 1e-4 of one device's, two runs
+             bit-equal, and a bf16 step timed under local, tp_sp and fsdp; a
+             prefill and decode steps over NCCL at world size 1 bit-equal to
+             stacked; the attention kernels at the fsdp per-engine training
+             shape against their plain versions, bounds and SDPA
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -321,7 +335,9 @@ ell_spmm with its `halo_transpose` call site; the attention rows with their
 backward at the tp_sp per-engine shape; the forward's
 `launches_mesh_dense_serve`, and `flash_attention.tp_prefill`: the forward
 at the tp_sp per-engine prefill shape; `flash_attention.tp_ep_prefill`: the
-forward at olmoe's per-engine prefill shape under TP + EP),
+forward at olmoe's per-engine prefill shape under TP + EP; the attention
+rows' `launches_mesh_moe_fsdp`, and `flash_attention.fsdp_ep`: the forward
+and the backward at olmoe's per-engine training shape under "fsdp"),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -4714,20 +4730,29 @@ def dense_attention(device: torch.device, timer: Timer, mesh) -> dict:
     """`flash_attention` and its backward at llama3.2-3b's tp_sp per-engine
     shape on `mesh` (every engine's rows and heads folded into the kernel's
     batch: q (DENSE_BATCH / data × model × rows, 128, 24 / model, 128), k/v
-    with 8 / model heads), bf16, causal: against the plain versions, the
-    bounds and `scaled_dot_product_attention` (forward, and its backward)."""
-    import torch.nn.functional as F
-
+    with 8 / model heads), bf16, causal (`attention_train_site`)."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
     cfg = get_arch(DENSE_ARCH).model_config()
     tp = mesh.shape["model"]
     b = DENSE_BATCH * tp  # (data rows × model engines × the data row's batch), folded
-    s, hq, hkv, dh = LM_TRAIN_SEQ, cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
-    gen = torch.Generator(device=device).manual_seed(11)
+    return attention_train_site(device, timer, (b, LM_TRAIN_SEQ, cfg.n_heads // tp, cfg.n_kv_heads // tp,
+                                                cfg.head_dim), 11, "the tp_sp shape")
+
+
+def attention_train_site(device: torch.device, timer: Timer, shape: tuple, seed: int, what: str) -> dict:
+    """`flash_attention` and its backward on random bf16 q (B, S, Hq, dh), k/v
+    (B, S, Hkv, dh) of `shape` = (B, S, Hq, Hkv, dh), causal: against the
+    plain versions, the bounds and `scaled_dot_product_attention` (forward,
+    and its backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    b, s, hq, hkv, dh = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=device).to(torch.bfloat16) for h in (hq, hkv, hkv))
     do = torch.randn((b, s, hq, dh), generator=gen, device=device).to(torch.bfloat16)
     forward = attention_forward_site(q, k, v, timer)
@@ -4738,7 +4763,7 @@ def dense_attention(device: torch.device, timer: Timer, mesh) -> dict:
     torch.cuda.synchronize()
     bwd_rel = max(float((a.float() - w.float()).abs().max()) / (float(w.float().abs().max()) + 1e-6)
                   for a, w in zip(grads, plain))
-    check(bwd_rel <= BWD_REL["bf16"], f"attention backward at the tp_sp shape vs plain: {bwd_rel}")
+    check(bwd_rel <= BWD_REL["bf16"], f"attention backward at {what} vs plain: {bwd_rel}")
     del plain
     # a yardstick, used nowhere in the port: the library's backward in its own layout
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -4843,17 +4868,17 @@ def dense_serve_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict
 
 
 def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None, *, new_tokens: int = SERVE_NEW,
-               routes: bool = False) -> tuple[dict, dict]:
-    """One drain of `prompts` through `build_engine` (SERVE_SLOTS slots,
+               routes: bool = False, slots: int = SERVE_SLOTS) -> tuple[dict, dict]:
+    """One drain of `prompts` through `build_engine` (`slots` slots,
     SERVE_MAX_SEQ positions, `new_tokens` new tokens), after a warm-up
     prefill and decode step: (the turn's numbers, with `routes` an MoE
     model's dropped share of routed slots, {uid: tokens})."""
     from repro_torch.launch.serve import build_engine
 
-    engine = build_engine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device, mesh=mesh)
+    engine = build_engine(cfg, params, slots=slots, max_seq=SERVE_MAX_SEQ, device=device, mesh=mesh)
     engine.cache, _ = engine.prefill_one(engine.cache, 0, torch.from_numpy(prompts[0][None, :256].astype(np.int64)))
-    _, engine.cache = engine.decode(engine.cache, torch.zeros((SERVE_SLOTS, 1), dtype=torch.long),
-                                    torch.zeros(SERVE_SLOTS, dtype=torch.long))
+    _, engine.cache = engine.decode(engine.cache, torch.zeros((slots, 1), dtype=torch.long),
+                                    torch.zeros(slots, dtype=torch.long))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs = {"prefill": [], "decode": []} if routes else None
@@ -5000,9 +5025,10 @@ def dense_serve_f32(device: torch.device, seed: int, mesh) -> dict:
     return out
 
 
-def nccl_world_one_serve(device: torch.device, seed: int, *, moe: bool = False) -> dict:
+def nccl_world_one_serve(device: torch.device, seed: int, *, moe: bool = False,
+                         strategies: tuple = ("tp_sp", "fsdp")) -> dict:
     """llama3.2-3b over SERVE_NCCL_LAYERS layers (bf16 activations), under
-    each strategy (with `moe`: olmoe-1b-7b with EP, under tp_sp): a prefill
+    each of `strategies` (with `moe`: olmoe-1b-7b with EP): a prefill
     of SERVE_NCCL_ROWS rows and SERVE_NCCL_STEPS decode steps over the
     "process_group" backend, NCCL at world size 1 on a (1, 1) mesh, against
     the stacked (1, 1) mesh under `deterministic_algorithms()`: logits and
@@ -5019,7 +5045,6 @@ def nccl_world_one_serve(device: torch.device, seed: int, *, moe: bool = False) 
     cfg = dataclasses.replace(get_arch(MOE_ARCH if moe else SERVE_ARCH).model_config(), n_layers=SERVE_NCCL_LAYERS)
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"))
-    strategies = ("tp_sp",) if moe else ("tp_sp", "fsdp")
     rng = np.random.default_rng(seed + 2)
     prompt = torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT))).to(device)
     steps = [torch.from_numpy(rng.integers(2, cfg.vocab, (SERVE_NCCL_ROWS, 1))).to(device)
@@ -5148,7 +5173,8 @@ def phase_mesh_dense_serve(device: torch.device, seed: int, smi: str | None, tim
 # weights and the serve phase's traffic; float32 logits and cache at capacity factor E/k against one device's; the
 # drop path at the config's capacity factor against the plain per-engine loop; NCCL at world size 1; the attention
 # kernel at the per-engine prefill shape
-MOE_TP_TURNS = ("local", "tp_ep", "tp_ep", "local")
+MOE_TP_TURNS = ("local", "tp_ep", "tp_ep", "local")  # "tp_ep": the mesh's route, named by MOE_ROUTE
+MOE_ROUTE = {"tp_sp": "tp_ep", "fsdp": "fsdp_ep"}
 MOE_F32_LAYERS = 16  # olmoe's float32 weights laid out beside one device's copy: 2 × 27 GB, with the caches
 MOE_DROP_PROMPT = 2047  # a one-slot prompt that 16 engines do not divide: the reference's flat layout, padded
 
@@ -5268,45 +5294,56 @@ def expert_choices():
         moe_lib._route = route
 
 
-def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, mesh) -> tuple[dict, int]:
-    """One MoE model served through `build_engine` under tp_sp with EP on
-    `mesh` and with impl="local" on one device, in turns (MOE_TP_TURNS), on
+def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens: int, mesh, *,
+                 strategy: str = "tp_sp") -> tuple[dict, int]:
+    """One MoE model served through `build_engine` under `strategy` with EP
+    on `mesh` (tp_sp: SERVE_SLOTS slots; "fsdp": MOE_FSDP_SLOTS, which split
+    over every engine) and with impl="local" on one device with as many
+    slots, in turns (MOE_TP_TURNS, the mesh's route named by MOE_ROUTE), on
     the same bf16 weights: every request drained, logits finite, one
     attention launch a layer a prefill, the dropped share of routed slots;
     prefill tokens/s, decode ms, peak; on the mesh two prefills of the
     longest prompt bit-equal with their routes (Cs, Ce, dropped shares by
-    layer), a decode step's (nothing dropped), the bytes a prefill and a
-    decode step move.  Returns (the entry, the first mesh turn's attention
-    launches)."""
+    layer), a decode step's (nothing dropped), under tp_sp the bytes a
+    prefill and a decode step move.  Returns (the entry, the first mesh
+    turn's attention launches)."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models.sharding import MeshRules
 
     m, L = cfg.moe, cfg.n_layers
     ep = mesh.shape[m.ep_axis]
-    tp_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"), rules=MeshRules(strategy="tp_sp"))
+    route, slots = MOE_ROUTE[strategy], SERVE_SLOTS if strategy == "tp_sp" else MOE_FSDP_SLOTS
+    tp_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ep_shardmap"),
+                                 rules=MeshRules(strategy=strategy))
     t0 = time.perf_counter()
     params = tfm.cast_params(tfm.init_params(cfg, seed, device=device), cfg)  # the moe phase's bf16 weights
     laid = tfm.shard_params(params, tp_cfg, mesh)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     dp = mesh.shape["data"]
-    check(laid["layers"]["wq"].shape[:2] == (dp, ep) and laid["layers"]["router"].shape[:2] == (dp, 1)
-          and laid["layers"]["we_gate"].shape[:2] == (1, ep), "the laid-out leaves: wq over both axes, the router "
-          "over data, the expert stacks over model")
-    runs = {"local": [], "tp_ep": []}
+    if strategy == "tp_sp":
+        check(laid["layers"]["wq"].shape[:2] == (dp, ep) and laid["layers"]["router"].shape[:2] == (dp, 1)
+              and laid["layers"]["we_gate"].shape[:2] == (1, ep), "the laid-out leaves: wq over both axes, the router "
+              "over data, the expert stacks over model")
+    else:
+        check(all(v.shape[:2] == (dp, ep) for k, v in laid["layers"].items() if "norm" not in k and k != "ws_sig")
+              and laid["layers"]["we_gate"].shape[3:] == (m.num_experts, cfg.d_model // (dp * ep), m.d_ff_expert),
+              "the laid-out leaves: every weight over both axes, the expert stacks ZeRO-3 (experts whole)")
+    runs = {"local": [], route: []}
     for name in MOE_TP_TURNS:
         on_mesh = name == "tp_ep"
+        name = route if on_mesh else name
         r, _ = serve_turn(tp_cfg if on_mesh else cfg, laid if on_mesh else params, prompts, device,
-                          mesh if on_mesh else None, new_tokens=new_tokens, routes=True)
+                          mesh if on_mesh else None, new_tokens=new_tokens, routes=True, slots=slots)
         check(r["requests_drained"] == len(prompts) and r["finite"], f"{cfg.name} {name}: {r}")
         check(r["flash_attention_launches"] == L * len(prompts), f"{cfg.name} {name}: flash_attention launched "
               f"{r['flash_attention_launches']} times, want {L} a prefill × {len(prompts)}")
         runs[name].append(r)
-    # the longest prompt's prefill on the mesh, twice, and a decode step at 4 slots
+    # the longest prompt's prefill on the mesh, twice, and a decode step at every slot
     toks = torch.from_numpy(max(prompts, key=len)[None, :].astype(np.int64)).to(device)
 
     def one_prefill():
-        cache = tfm.init_kv_cache(tp_cfg, SERVE_SLOTS, toks.shape[1], dtype=torch.float32, device=device, mesh=mesh)
+        cache = tfm.init_kv_cache(tp_cfg, slots, toks.shape[1], dtype=torch.float32, device=device, mesh=mesh)
         return tfm.prefill(laid, toks, cache, tp_cfg, mesh=mesh, slot=0)[0], cache
 
     with torch.no_grad():
@@ -5316,10 +5353,10 @@ def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens
         bit_equal = bool(torch.equal(la, lb) and torch.equal(ca["k"], cb["k"]) and torch.equal(ca["v"], cb["v"]))
         check(bit_equal, f"{cfg.name}: two composed prefills of one prompt differ")
         prefill_routes = ep_stats(log, m, ep, toks.shape[1], cfg.d_model, 2)
-        pos = torch.full((SERVE_SLOTS,), toks.shape[1] - 1, dtype=torch.long, device=device)
-        _, dlog = ep_logged(lambda: tfm.decode_step_batched_pos(laid, ca, pos, toks[0, :SERVE_SLOTS, None], tp_cfg,
+        pos = torch.full((slots,), toks.shape[1] - 1, dtype=torch.long, device=device)
+        _, dlog = ep_logged(lambda: tfm.decode_step_batched_pos(laid, ca, pos, toks[0, :slots, None], tp_cfg,
                                                                mesh=mesh))
-    decode_routes = ep_stats(dlog, m, ep, SERVE_SLOTS, cfg.d_model, 2)
+    decode_routes = ep_stats(dlog, m, ep, slots, cfg.d_model, 2)
     check(prefill_routes["padded_expert_slots"] == 0 and decode_routes["padded_expert_slots"] == 0,
           f"{cfg.name}: a padded expert got a slot")
     check(decode_routes["stage1_dropped_share_mean"] == 0 and decode_routes["stage2_dropped_share_mean"] == 0,
@@ -5331,9 +5368,10 @@ def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens
            "experts": m.num_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert, "d_ff_shared": m.d_ff_shared,
            "capacity_factor": m.capacity_factor, "padded_experts": m.padded_experts(ep),
            "experts_an_engine": m.padded_experts(ep) // ep, "mesh": dict(mesh.shape), "engines": mesh.num_engines,
-           "strategy": "tp_sp", "activations": "bfloat16", "kv_cache": "float32", "slots": SERVE_SLOTS,
+           "strategy": strategy, "activations": "bfloat16", "kv_cache": "float32", "slots": slots,
            "max_seq": SERVE_MAX_SEQ, "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
-           "max_new_tokens": new_tokens, "setup_s": setup_s, "turns": list(MOE_TP_TURNS), "runs": runs,
+           "max_new_tokens": new_tokens, "setup_s": setup_s,
+           "turns": [route if t == "tp_ep" else t for t in MOE_TP_TURNS], "runs": runs,
            "prefill_tok_s": {k: float(np.mean([r["prefill_tok_s"] for r in v])) for k, v in runs.items()},
            "decode_ms_a_step": {k: float(np.mean([r["decode_ms_a_step"] for r in v])) for k, v in runs.items()},
            "max_memory_allocated_gb": {k: max(r["max_memory_allocated_gb"] for r in v) for k, v in runs.items()},
@@ -5341,20 +5379,22 @@ def moe_tp_drain(cfg, device: torch.device, seed: int, prompts: list, new_tokens
            "dropped_share_a_drain": {k: [r["dropped_share"] for r in v] for k, v in runs.items()},
            "prefills_bit_equal": bit_equal, "routes_longest_prefill": prefill_routes,
            "routes_decode_step": {k: decode_routes[k] for k in (
-               "tokens", "Cs", "Ce", "stage1_dropped_share_mean", "stage2_dropped_share_mean", "padded_expert_slots")},
-           "bytes": {"prefill_2048_one_slot": moe_tp_bytes(tp_cfg, mesh, 1, TP_PREFILL_S, False),
-                     "decode_step": moe_tp_bytes(tp_cfg, mesh, SERVE_SLOTS, 1, True)}}
-    out["tp_ep_vs_local_prefill_tok_s"] = out["prefill_tok_s"]["tp_ep"] / out["prefill_tok_s"]["local"]
-    out["tp_ep_vs_local_decode_ms"] = out["decode_ms_a_step"]["tp_ep"] / out["decode_ms_a_step"]["local"]
-    return out, runs["tp_ep"][0]["flash_attention_launches"]
+               "tokens", "Cs", "Ce", "stage1_dropped_share_mean", "stage2_dropped_share_mean", "padded_expert_slots")}}
+    if strategy == "tp_sp":
+        out["bytes"] = {"prefill_2048_one_slot": moe_tp_bytes(tp_cfg, mesh, 1, TP_PREFILL_S, False),
+                        "decode_step": moe_tp_bytes(tp_cfg, mesh, SERVE_SLOTS, 1, True)}
+    out[f"{route}_vs_local_prefill_tok_s"] = out["prefill_tok_s"][route] / out["prefill_tok_s"]["local"]
+    out[f"{route}_vs_local_decode_ms"] = out["decode_ms_a_step"][route] / out["decode_ms_a_step"]["local"]
+    return out, runs[route][0]["flash_attention_launches"]
 
 
-def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -> dict:
+def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool, strategy: str = "tp_sp") -> dict:
     """`cfg` in float32 (weights and activations) at capacity factor E/k
     (no slot can drop): SERVE_F32_ROWS one-slot prefills of their own
     lengths into a cache of as many slots and SERVE_F32_MAX_SEQ positions,
     then SERVE_F32_STEPS `decode_step_batched_pos` steps, on one device
-    (impl="local") and under tp_sp with EP on `mesh` (twice: bit-equal);
+    (impl="local") and under `strategy` with EP on `mesh` (twice: bit-equal;
+    under "fsdp" each decode step's engines route their own row);
     every logit within MESH_F32_TOL of one device's, greedy tokens equal, no
     slot dropped, the unsharded cache within MODEL_TOL at every position
     whose token picked the same experts in every layer on both routes (a
@@ -5376,7 +5416,7 @@ def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -
     cf = m.num_experts / m.top_k
     local = dataclasses.replace(cfg, dtype=torch.float32, moe=dataclasses.replace(m, capacity_factor=cf, impl="local"))
     tp_cfg = dataclasses.replace(local, moe=dataclasses.replace(local.moe, impl="ep_shardmap"),
-                                 rules=MeshRules(strategy="tp_sp"))
+                                 rules=MeshRules(strategy=strategy))
     rng = np.random.default_rng(seed + 1)
     lengths = rng.integers(*SERVE_F32_PROMPT, size=SERVE_F32_ROWS)
     prompts = [torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, int(n)))).to(device) for n in lengths]
@@ -5439,7 +5479,8 @@ def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -
     greedy = [torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip([got["prefill"], *got["decode"]],
                                                                         [want["prefill"], *want["decode"]])]
     out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32", "capacity_factor": cf,
-           "mesh": dict(mesh.shape), "rows": SERVE_F32_ROWS, "prompt_lengths": [int(x) for x in lengths],
+           "mesh": dict(mesh.shape), "strategy": strategy, "rows": SERVE_F32_ROWS,
+           "prompt_lengths": [int(x) for x in lengths],
            "max_seq": SERVE_F32_MAX_SEQ, "decode_steps": SERVE_F32_STEPS, "tolerance_abs": MESH_F32_TOL,
            "logits_max_abs": float(want["prefill"].abs().max()), "max_abs_err": err,
            "prefill_max_abs_err": diff(got["prefill"], want["prefill"]),
@@ -5450,12 +5491,16 @@ def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -
            "positions_with_other_experts": int(flipped.sum()), "router_logit_gap_at_first_flip": first_gaps,
            "router_near_tie": ROUTER_NEAR_TIE, "router_flip_share_limit": ROUTER_FLIP_SHARE,
            "greedy_tokens_equal_prefill_then_steps": greedy,
-           "two_runs_bit_equal": same, "slots_dropped": {"local": local_drop, "tp_ep": ep_drop},
-           "Cs_of_a_prefill": log[0].Cs, "Ce_of_a_prefill": log[0].Ce}
+           "two_runs_bit_equal": same, "slots_dropped": {"local": local_drop, MOE_ROUTE[strategy]: ep_drop},
+           "Cs_of_a_prefill": log[0].Cs, "Ce_of_a_prefill": log[0].Ce,
+           "tokens_an_engine_routes": {"prefill": int(log[0].stage1[0].sum()) // m.top_k,
+                                       "decode_step": int(log[-1].stage1[0].sum()) // m.top_k}}
     del got, want
     check(local_drop == 0 and ep_drop == 0,
           f"{cfg.name}: slots dropped at capacity_factor {cf}: {out['slots_dropped']}")
     check(same, f"{cfg.name}: two float32 composed runs differ")
+    check(strategy != "fsdp" or out["tokens_an_engine_routes"]["decode_step"] == SERVE_F32_ROWS // mesh.num_engines,
+          f"{cfg.name}: under fsdp each engine routes its own decode row: {out['tokens_an_engine_routes']}")
     check(flips <= ROUTER_FLIP_SHARE * out["routings"] and all(g < ROUTER_NEAR_TIE for g in first_gaps),
           f"{cfg.name}: the composed route picked other experts than one device's where the router is no near tie: "
           f"{flips} of {out['routings']} routings, first-flip gaps {first_gaps}")
@@ -5464,7 +5509,8 @@ def moe_tp_f32(cfg, device: torch.device, seed: int, mesh, *, drop_path: bool) -
     if drop_path:
         e125 = dataclasses.replace(tp_cfg, moe=dataclasses.replace(m, impl="ep_shardmap"))
         toks = torch.from_numpy(rng.integers(2, cfg.vocab, size=(1, MOE_DROP_PROMPT))).to(device)
-        cache = tfm.init_kv_cache(e125, SERVE_SLOTS, MOE_DROP_PROMPT, torch.float32, device=device, mesh=mesh)
+        slots = SERVE_SLOTS if strategy == "tp_sp" else MOE_FSDP_SLOTS
+        cache = tfm.init_kv_cache(e125, slots, MOE_DROP_PROMPT, torch.float32, device=device, mesh=mesh)
         with torch.no_grad(), ep_rows_seen(MESH_LOOP_LAYERS) as seen:
             tfm.prefill(laid, toks, cache, e125, mesh=mesh, slot=0)
             torch.cuda.synchronize()
@@ -5548,7 +5594,7 @@ def phase_mesh_moe_serve(device: torch.device, seed: int, smi: str | None, timer
                      ("olmoe_float32_vs_one_device", lambda: moe_tp_f32(f32_cfg, device, seed, mesh, drop_path=True)),
                      ("qwen", lambda: moe_tp_drain(wide, device, seed, wide_prompt, MOE_WIDE_STEPS + 1, mesh)),
                      ("qwen_float32_vs_one_device", lambda: moe_tp_f32(wide, device, seed, mesh, drop_path=False)),
-                     ("nccl", lambda: nccl_world_one_serve(device, seed, moe=True)),
+                     ("nccl", lambda: nccl_world_one_serve(device, seed, moe=True, strategies=("tp_sp",))),
                      ("attention_tp_ep_prefill_shape", lambda: moe_tp_attention(device, timer, mesh))):
         t0 = time.perf_counter()
         parts[name] = fn()
@@ -5567,6 +5613,182 @@ def phase_mesh_moe_serve(device: torch.device, seed: int, smi: str | None, timer
            "timing": "host clock around each prefill / decode call, synchronised on both sides; the routes in "
                      "turns, each a mean of two"}
     say("mesh_moe_serve", **out)
+    return out, launches
+
+
+# --------------------------------------------------------------------------- mesh_moe_fsdp
+
+# (j) MoE on MESH_SHAPE under `MeshRules(strategy="fsdp")`: every leaf laid out ZeRO-3 by `param_specs`, the
+# expert stacks too (experts whole, d_model over both axes) and gathered into EP's slab at use
+# (`moe.zero3_expert_slabs`), the token rows split over all 16 engines and each engine routing its own
+# (`moe.moe_ep_rows`'s in-place branch): olmoe-1b-7b at its published width and depth drained through
+# `build_engine(..., slots=MOE_FSDP_SLOTS, mesh=)` beside one device's engine with as many slots, in turns, on the
+# moe phase's bf16 weights and traffic; float32 logits and cache at capacity factor E/k against one device's (the
+# decode steps one row an engine) and the drop path at 1.25 against the plain per-engine loop; qwen2-moe over
+# MOE_WIDE_LAYERS layers the same; olmoe over MOE_FSDP_TRAIN_LAYERS layers trained: float32 loss and gradients
+# against one device's, and a bf16 step timed under local, tp_sp and fsdp; NCCL at world size 1; the attention
+# kernels at the fsdp per-engine training shape
+MOE_FSDP_SLOTS = 16  # "fsdp" splits the slots over all 16 engines (4 do not divide: refused, as the reference)
+MOE_FSDP_TRAIN_LAYERS, MOE_FSDP_STEPS = 2, 3  # 3 steps a route: the step time is the median of the last two
+MOE_FSDP_TRAIN_TURNS = ("local", "tp_sp", "fsdp")
+MOE_FSDP_LOSS_RTOL = 1e-5  # the float32 loss against one device's
+
+
+def moe_fsdp_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
+    """olmoe-1b-7b at its published width over MOE_FSDP_TRAIN_LAYERS layers
+    on DENSE_BATCH × LM_TRAIN_SEQ tokens (16 rows: one an engine under
+    "fsdp"): in float32 at capacity factor E/k the loss (within
+    MOE_FSDP_LOSS_RTOL) and every gradient (within MESH_GRAD_REL of its
+    largest entry) under "fsdp" on `mesh` against one device's impl="local",
+    two runs bit-equal, nothing dropped, every engine routing its own row;
+    then MOE_FSDP_STEPS bf16 steps under each of MOE_FSDP_TRAIN_TURNS,
+    timed and reported, not checked.  Returns (the entry, the fsdp run's
+    kernel launches)."""
+    import itertools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline, to_device
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+    from repro_torch.train.pytree import tree_leaves, tree_leaves_with_path, tree_unflatten
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls in the float32 gradient check")
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).model_config(), n_layers=MOE_FSDP_TRAIN_LAYERS)
+    m, L = cfg.moe, cfg.n_layers
+    data = TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, DENSE_BATCH, seed=seed)
+    batches = [to_device(b, device) for b in itertools.islice(data, MOE_FSDP_STEPS)]
+
+    def loss_and_grads(params, c, msh=None):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = tfm.loss_fn(params, batches[0], c, mesh=msh)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cf = m.num_experts / m.top_k
+    loc = dataclasses.replace(f32, moe=dataclasses.replace(m, capacity_factor=cf))
+    fs = dataclasses.replace(loc, moe=dataclasses.replace(loc.moe, impl="ep_shardmap"),
+                             rules=MeshRules(strategy="fsdp"))
+    params = tfm.init_params(f32, seed, device=device)
+    names = ["/".join(map(str, p)) for p, _ in tree_leaves_with_path(params)]
+    torch.cuda.reset_peak_memory_stats()
+    (want_loss, want), local_drop = local_dropped(lambda: loss_and_grads(params, loc))
+    laid = tfm.shard_params(params, fs, mesh)
+    del params
+    dp, ep = mesh.shape["data"], mesh.shape[m.ep_axis]
+    check(laid["layers"]["we_gate"].shape == (dp, ep, L, m.num_experts, cfg.d_model // (dp * ep), m.d_ff_expert),
+          f"the ZeRO-3 expert stacks: {tuple(laid['layers']['we_gate'].shape)}")
+    (got_loss, got), log = ep_logged(lambda: loss_and_grads(laid, fs, mesh))
+    again = loss_and_grads(laid, fs, mesh)[1]
+    same = bit_equal(got, again)
+    del again
+    ep_drop = sum(int((r.stage1 - r.Cs).clamp_min(0).sum()) + int((r.stage2[:, :-1] - r.Ce).clamp_min(0).sum())
+                  for r in log)
+    own = batches[0]["tokens"].numel() // mesh.num_engines
+    routed = sorted({int(r.stage1[i].sum()) // m.top_k for r in log for i in range(r.stage1.shape[0])})
+    got = tree_leaves(tfm.unshard_params(tree_unflatten(laid, got), fs, mesh))
+    rel = rel_errs(got, want, names)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del laid, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": MOE_ARCH, "layers": L, "batch": DENSE_BATCH, "seq": LM_TRAIN_SEQ, "mesh": dict(mesh.shape),
+           "cuts": [f"{L} of {get_arch(MOE_ARCH).n_layers} layers: a float32 state beside one device's, and three "
+                    "routes' bf16 training states in turn"],
+           "float32_vs_one_device": {
+               "capacity_factor": cf, "loss": got_loss, "one_device_loss": want_loss, "loss_rel_err": loss_rel,
+               "loss_tolerance_rel": MOE_FSDP_LOSS_RTOL, "max_rel_err": max(rel.values()), "rel_err_by_leaf": rel,
+               "tolerance_rel": MESH_GRAD_REL, "grads_bit_equal_two_runs": same,
+               "slots_dropped": {"local": local_drop, "fsdp_ep": ep_drop}, "Cs": log[0].Cs, "Ce": log[0].Ce,
+               "tokens_an_engine_routes": routed, "max_memory_allocated_gb": peak}}
+    check(local_drop == 0 and ep_drop == 0, f"slots dropped at capacity_factor {cf}: local {local_drop}, EP {ep_drop}")
+    check(routed == [own], f"each engine routes its own row's {own} tokens: got {routed}")
+    check(same, "two float32 fsdp gradients of one state differ")
+    check(loss_rel <= MOE_FSDP_LOSS_RTOL, f"float32 fsdp loss vs one device: {got_loss} vs {want_loss}")
+    check(max(rel.values()) <= MESH_GRAD_REL, f"float32 fsdp gradients vs one device: {rel}")
+
+    runs, launches = {}, {}
+    for name in MOE_FSDP_TRAIN_TURNS:
+        c = cfg if name == "local" else dataclasses.replace(
+            cfg, moe=dataclasses.replace(m, impl="ep_shardmap"), rules=MeshRules(strategy=name))
+        r = lm_train_run(c, batches, device, seed, None if name == "local" else mesh)
+        runs[name] = {k: r[k] for k in ("losses", "step_ms", "tokens_per_s", "max_memory_allocated_gb")}
+        runs[name]["flash_attention_launches_a_step"] = r["launches"]["flash_attention"] / MOE_FSDP_STEPS
+        runs[name]["flash_attention_bwd_launches_a_step"] = r["launches"]["flash_attention_bwd"] / MOE_FSDP_STEPS
+        if name == "fsdp":
+            launches = dict(r["launches"])
+    check(launches["flash_attention"] == 2 * L * MOE_FSDP_STEPS
+          and launches["flash_attention_bwd"] == L * MOE_FSDP_STEPS, f"fsdp training's attention launches: {launches}")
+    out["bf16_step"] = {"steps": MOE_FSDP_STEPS, "capacity_factor": m.capacity_factor, "routes": runs,
+                        "fsdp_vs_local_step_ms": runs["fsdp"]["step_ms"] / runs["local"]["step_ms"],
+                        "tp_sp_vs_local_step_ms": runs["tp_sp"]["step_ms"] / runs["local"]["step_ms"],
+                        "timing": "the host clock between the ends of consecutive steps (each ends on the loss's "
+                                  "read), the median of the last two; timed and reported, not checked"}
+    return out, launches
+
+
+def moe_fsdp_attention(device: torch.device, timer: Timer, mesh) -> dict:
+    """The attention kernels at olmoe's per-engine training shape under
+    "fsdp" on `mesh`: each engine's one row of DENSE_BATCH with all 16 query
+    and kv heads (nothing split over "model"), every engine's folded into
+    the batch: q (DENSE_BATCH, LM_TRAIN_SEQ, 16, 128), bf16, causal
+    (`attention_train_site`)."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(MOE_ARCH).model_config()
+    check(DENSE_BATCH % mesh.num_engines == 0, "one row an engine")
+    return attention_train_site(device, timer, (DENSE_BATCH, LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+                                19, "olmoe's fsdp training shape")
+
+
+def phase_mesh_moe_fsdp(device: torch.device, seed: int, smi: str | None, timer: Timer) -> tuple[dict, dict]:
+    """(j) MoE on MESH_SHAPE under "fsdp": `moe_tp_drain` and `moe_tp_f32`
+    with strategy "fsdp", `moe_fsdp_train`, `nccl_world_one_serve`,
+    `moe_fsdp_attention`.  Returns (the `mesh_moe_fsdp` line, the drain's
+    and the fsdp training run's attention launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.distributed import make_mesh
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls would change which experts the router picks")
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=device)
+    cfg = get_arch(MOE_ARCH).model_config()
+    wide = dataclasses.replace(get_arch(MOE_WIDE_ARCH).model_config(), n_layers=MOE_WIDE_LAYERS)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*SERVE_PROMPT, size=SERVE_REQUESTS)  # the moe phase's traffic
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+    f32_cfg = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+    parts, launches = {}, {}
+    for name, fn in (("olmoe", lambda: moe_tp_drain(cfg, device, seed, prompts, SERVE_NEW, mesh, strategy="fsdp")),
+                     ("olmoe_float32_vs_one_device", lambda: moe_tp_f32(f32_cfg, device, seed, mesh, drop_path=True,
+                                                                       strategy="fsdp")),
+                     ("qwen_float32_vs_one_device", lambda: moe_tp_f32(wide, device, seed, mesh, drop_path=False,
+                                                                      strategy="fsdp")),
+                     ("train", lambda: moe_fsdp_train(device, seed, mesh)),
+                     ("nccl", lambda: nccl_world_one_serve(device, seed, moe=True, strategies=("fsdp",))),
+                     ("attention_fsdp_train_shape", lambda: moe_fsdp_attention(device, timer, mesh))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        print(f"mesh_moe_fsdp: {name} done", file=sys.stderr, flush=True)
+        if name in ("olmoe", "train"):
+            parts[name], launches[name] = parts[name]
+        parts[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts["olmoe_float32_vs_one_device"]["cuts"] = [] if MOE_F32_LAYERS == cfg.n_layers else [
+        f"{MOE_F32_LAYERS} of {cfg.n_layers} layers"]
+    parts["qwen_float32_vs_one_device"]["cuts"] = [
+        f"{MOE_WIDE_LAYERS} of {get_arch(MOE_WIDE_ARCH).n_layers} layers, as the moe phase"]
+    out = {**parts, "card": smi,
+           "weights": "random, from a seeded torch.Generator on the card (the moe phase's seed: the same weights)",
+           "timing": "host clock around each prefill / decode call, synchronised on both sides; the routes in "
+                     "turns, each a mean of two"}
+    say("mesh_moe_fsdp", **out)
     return out, launches
 
 
@@ -5653,6 +5875,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_moe, serve_moe_launches = phase_mesh_moe_serve(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fsdp, moe_fsdp_launches = phase_mesh_moe_fsdp(device, args.seed, info["nvidia_smi"], timer)
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{
@@ -5711,6 +5936,8 @@ def main() -> int:
         "launches_mesh_train": train_mesh["flash_attention"], "launches_mesh_train_qwen": train_mesh["flash_attention_qwen"],
         "launches_mesh_dense": dense_launches["flash_attention"],
         "launches_mesh_dense_serve": serve_tp_launches,
+        "launches_mesh_moe_fsdp": moe_fsdp_launches["olmoe"],
+        "launches_mesh_moe_fsdp_train": moe_fsdp_launches["train"]["flash_attention"],
     }, {
         "name": "flash_attention.tp", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": dense_launches["flash_attention"],
@@ -5744,6 +5971,20 @@ def main() -> int:
                  f"{tuple(serve_moe['attention_tp_ep_prefill_shape']['k'])} bf16, causal; library: "
                  "scaled_dot_product_attention",
     }, {
+        "name": "flash_attention.fsdp_ep", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": moe_fsdp_launches["olmoe"] + moe_fsdp_launches["train"]["flash_attention"],
+        "launches_drain": moe_fsdp_launches["olmoe"], "launches_train": moe_fsdp_launches["train"]["flash_attention"],
+        "max_abs_err": moe_fsdp["attention_fsdp_train_shape"]["forward"]["max_abs_err"],
+        **{k: moe_fsdp["attention_fsdp_train_shape"]["forward"][k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"olmoe-1b-7b's fsdp training attention on {MESH_SHAPE} (each engine's one row with all 16 query "
+                 "and kv heads, every engine's folded into the batch): q "
+                 f"{tuple(moe_fsdp['attention_fsdp_train_shape']['q'])}, k/v "
+                 f"{tuple(moe_fsdp['attention_fsdp_train_shape']['k'])} bf16, causal; library: "
+                 "scaled_dot_product_attention; the drain's one-slot prefills are the moe phase's shape",
+        "backward": {"source": FA_BWD_SOURCE, "launches": moe_fsdp_launches["train"]["flash_attention_bwd"],
+                     **moe_fsdp["attention_fsdp_train_shape"]["backward"]},
+    }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_REPLACES + " (its gradient: the TPU kernel has none; the reference differentiates "
                     "its attention by autodiff)",
@@ -5763,6 +6004,7 @@ def main() -> int:
         "launches_mesh_train": train_mesh["flash_attention_bwd"],
         "launches_mesh_train_qwen": train_mesh["flash_attention_bwd_qwen"],
         "launches_mesh_dense": dense_launches["flash_attention_bwd"],
+        "launches_mesh_moe_fsdp": moe_fsdp_launches["train"]["flash_attention_bwd"],
         "moe_train_shape": {"shape": "olmoe-1b-7b training attention: q/k/v (8, 128, 16, 128) bf16, causal",
                             **{k: attn["backward"]["timed"]["moe_train"][k] for k in (
                                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",

@@ -7,10 +7,11 @@ products on "model" under `MeshRules(strategy="tp_sp")`, ZeRO-3 under
 hand, once, over the mesh's local-engine axes (as `moe._moe_ep_body` is), and
 both mesh backends run it with the same bits.  `transformer.forward`,
 `loss_fn`, `prefill` and the decode steps call it for a dense config given a
-mesh, and for an MoE config with impl="ep_shardmap" under tp_sp: the same
-layer, its FFN the reference's `moe_block` under `shard_map` (`_moe_ffn`:
-EP over "model" on each engine's own tokens, the shared expert Megatron TP),
-its KV cache laid out as a dense model's.
+mesh, and for an MoE config with impl="ep_shardmap" under either strategy:
+the same layer, its FFN the reference's `moe_block` under `shard_map`
+(`_moe_ffn`: EP over "model" on each engine's own tokens, the shared expert
+as the dense FFN's products, Megatron TP or ZeRO-3), its KV cache laid out
+as a dense model's.
 
 Layout.  Every leaf is laid out by `transformer.shard_params`
 (`sharding.shard_tensor` with `transformer.param_specs`): (local engines…,
@@ -350,21 +351,29 @@ def _moe_ffn(m, plan: _Plan, x: Tensor, x_axes: frozenset, lp: dict) -> Tensor:
     """The MoE block on `mlp_norm`'s output: the routed experts by EP over
     "model" on each engine's own tokens (`moe.moe_ep_rows`), the router
     gathered whole as `param_specs` lays it (float32, as `cast_params` keeps
-    it); qwen2-moe's sigmoid-gated shared expert as Megatron TP, `_ffn`'s
-    products (ws_gate/ws_up column-parallel, ws_down row-parallel and summed
-    over "model"), its gate ws_sig replicated."""
+    it); the expert stacks as EP's slab (tp_sp), or ZeRO-3 ("fsdp") and
+    gathered into it here (`moe.zero3_expert_slabs`: inside the layer's
+    `checkpoint`, so the recompute gathers again); qwen2-moe's
+    sigmoid-gated shared expert by `_ffn`'s products (Megatron TP: ws_gate/
+    ws_up column-parallel, ws_down row-parallel and summed over "model";
+    ZeRO-3: each gathered), its gate ws_sig replicated."""
     specs = plan.specs["layers"]
     h = rms_norm(x, _scale(plan, lp["mlp_norm"], x, x_axes))
     router, _ = _weight(plan, lp["router"], specs["router"][1:])
+    if _axes(specs["we_gate"][1]) != (m.ep_axis,):  # ZeRO-3 stacks: the experts whole
+        lp = {**lp, **moe_lib.zero3_expert_slabs(m, lp, {k: specs[k][1:] for k in moe_lib.EXPERT_KEYS}, plan.mesh)}
     out = moe_lib.moe_ep_rows(m, lp, h, router, plan.batch, plan.mesh)
     if m.d_ff_shared:
         (g, ga), (u, _) = _fan_out(plan, h, x_axes, [_weight(plan, lp[k], specs[k][1:]) for k in ("ws_gate", "ws_up")])
         y, ya = _matmul(plan, F.silu(g) * u, ga, *_weight(plan, lp["ws_down"], specs["ws_down"][1:]))
         # the gate, one dot product a row in float32 (a one-column BLAS product rounds by the row count, which
-        # differs between the backends' engines); entered as a norm scale is
+        # differs between the backends' engines); entered as a norm scale is.  Its sigmoid is taken along each
+        # row: a CPU elementwise op vectorizes a contiguous tensor by its whole count, so a one-column tensor's
+        # last few entries, which differ with the engines' rows, would round otherwise
         sig = _scale(plan, _weight(plan, lp["ws_sig"], specs["ws_sig"][1:])[0][..., 0], h, x_axes)
         gate = (h.float() * sig.float()).sum(-1, keepdim=True).to(h.dtype)
-        out = out + _psum_tp(plan, y, ya, x_axes) * torch.sigmoid(gate)
+        y = _psum_tp(plan, y, ya, x_axes)
+        out = out + y * torch.sigmoid(gate.expand_as(y))
     return out
 
 

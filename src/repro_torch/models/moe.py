@@ -67,15 +67,21 @@ axis, EP raises where the reference runs the local path; `moe_block(...,
 mesh=)` takes the whole token batch and hands every process every token's
 output (the all-gather the reference's `out_specs` leave to XLA).
 `moe_ep_rows` is EP inside the transformer laid out on the mesh
-(`models.dense_mesh`, tp_sp): it takes the token rows as the residual lies,
-split over the data axes and held once along "model", and returns its
-output the same way.  The engines' blocks must be the reference's, whose
-capacities follow each block's token count: where the rows split over every
-data axis and B_l·S divides over "model", block i of data row g's own
-tokens is engine (g, i)'s; anywhere else the rows are gathered and laid out
-as `moe_block` lays a whole batch (padded, contiguous blocks), and each
-engine takes its own rows of the output back.  Both entries share
-`_moe_ep_body` and `ep_capacities`.  `moe_ep_loop_ref` is EP's plain
+(`models.dense_mesh`): it takes the token rows as the residual lies (under
+tp_sp split over the data axes and held once along "model", under "fsdp"
+split over every axis) and returns its output the same way.  The engines'
+blocks must be the reference's, whose capacities follow each block's token
+count: where the rows split over every axis, an engine's own rows are its
+block; where they split over every data axis and B_l·S divides over
+"model", block i of data row g's own tokens is engine (g, i)'s; anywhere
+else the rows are gathered and laid out as `moe_block` lays a whole batch
+(padded, contiguous blocks), and each engine takes its own rows of the
+output back.  Both entries share `_moe_ep_body` and `ep_capacities`.
+Under "fsdp" the expert stacks are laid out ZeRO-3 as the reference's
+`layer_specs` lays them (the real experts whole, d_model over ("data",
+"model")); `zero3_expert_slabs` gathers one layer's into EP's slab at use,
+padded as the reference's `pad_e` pads them, and carries the gradient
+back.  `moe_ep_loop_ref` is EP's plain
 version: the reference's per-device body for one engine at a time on the
 whole expert stacks, the exchanges as indexing, no sort.
 """
@@ -93,8 +99,8 @@ from repro_torch.models.sharding import (P, MeshRules, axis_if_divisible, gather
                                          unshard_tensor)
 
 __all__ = ["MoEConfig", "IMPLS", "EXPERT_KEYS", "layer_shapes", "layer_specs", "ep_specs", "shard_experts",
-           "unshard_experts", "capacity", "ep_capacities", "moe_block", "moe_ep_rows", "moe_loop_ref",
-           "moe_ep_loop_ref", "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
+           "unshard_experts", "zero3_expert_slabs", "capacity", "ep_capacities", "moe_block", "moe_ep_rows",
+           "moe_loop_ref", "moe_ep_loop_ref", "load_balance_loss", "checkpoint_contexts", "expert_device_permutation"]
 
 IMPLS = ("local", "ep_shardmap")
 EXPERT_KEYS = ("we_gate", "we_up", "we_down")
@@ -192,6 +198,53 @@ def unshard_experts(m: MoEConfig, lp: dict, mesh, *, prefix: int = 0) -> dict:
     out = dict(lp)
     for k, spec in ep_specs(m, prefix=prefix).items():
         out[k] = unshard_tensor(lp[k], spec, mesh).narrow(prefix, 0, m.num_experts)
+    return out
+
+
+def zero3_expert_slabs(m: MoEConfig, lp: dict, specs: dict, mesh) -> dict:
+    """EP's slab of one layer's expert stacks laid out ZeRO-3: `lp[k]`
+    (local engines…, E, ·, ·) laid out by `specs[k]` over its (E, ·, ·)
+    (`layer_specs` under "fsdp": the experts whole, one other dim split
+    over the rules' fsdp axes, "model" last, or whole).  Returns {k: (local
+    engines…, e_l, ·, ·)}, the layout `shard_experts` gives: padded with
+    zero experts to `padded_experts(ep)` (the reference's `pad_e`), each
+    model engine's e_l experts with every dim whole, held once along the
+    other axes.
+
+    The forward moves data only.  On "stacked" the split dim is put back
+    together (`gather_dim`, one copy of the stack) and each model engine's
+    experts are a view of it.  On "process_group" each engine receives its
+    own experts' blocks only: the padded blocks go to their model engines
+    by one `all_to_all` over "model", then the other axes' blocks are
+    gathered.  The gradient comes back by the transposes: EP enters the
+    slab over the data axes (`_ep_engines`), whose backward folds the data
+    rows' gradients in engine order; then each engine gets its block of
+    the split dim, each expert's rows from the one model engine that holds
+    it (nothing is summed over "model"), the padding's dropped."""
+    if m.ep_axis not in mesh.shape:
+        raise ValueError(f"EP lays its experts out over {m.ep_axis!r}; the mesh has {mesh.axis_names}")
+    ep, n, a = mesh.shape[m.ep_axis], len(mesh.axis_names), mesh.axis_index(m.ep_axis)
+    e_l = m.padded_experts(ep) // ep
+    out = {}
+    for k in EXPERT_KEYS:
+        w, entries = lp[k], tuple(specs[k]) + (None,) * (3 - len(tuple(specs[k])))
+        axes = [() if e is None else ((e,) if isinstance(e, str) else tuple(e)) for e in entries]
+        split = [i for i in (1, 2) if axes[i]]
+        if axes[0] or len(split) > 1 or (split and axes[split[0]][-1] != m.ep_axis):
+            raise ValueError(f"{k}: not a ZeRO-3 expert stack with {m.ep_axis!r} last in its split (spec {specs[k]})")
+        pad = e_l * ep - w.shape[n]
+        if pad:
+            w = torch.cat([w, w.new_zeros((*w.shape[:n], pad, *w.shape[n + 1:]))], n)
+        if mesh.backend == "stacked":
+            whole = gather_dim(mesh, w, axes[split[0]], n + split[0]) if split else w
+            out[k] = whole.unflatten(n, (ep, e_l)).transpose(a, n).squeeze(n)
+        elif split:
+            i = split[0]
+            w = mesh.all_to_all(w.unflatten(n, (ep, e_l)), m.ep_axis)  # dim n: the sending engine
+            w = w.movedim(n, n + i).flatten(n + i, n + i + 1)  # the split dim's blocks of this model row, in order
+            out[k] = gather_dim(mesh, w, axes[i][:-1], n + i)
+        else:  # whole on every rank: each model engine cuts its experts out, the gradient summed over "model"
+            out[k] = own_block(mesh, mesh.enter(w, m.ep_axis), m.ep_axis, n)
     return out
 
 
@@ -401,9 +454,12 @@ def _moe_ep_body(m: MoEConfig, mesh, x: torch.Tensor, router: torch.Tensor, slab
     keep = pos < Cs
     slot = torch.where(keep, dest.gather(1, order) * Cs + pos, S)  # S: the sentinel of a dropped slot
     into = torch.where(keep, rows * S + slot, L * S).view(-1)  # one sentinel row for every engine
-    t_s = torch.div(order, k, rounding_mode="floor")  # the token of each sorted slot
+    # each sorted slot's token, from x repeated once a slot: a token's gradient is then its k slots' summed in
+    # slot order (a gather of the tokens would scatter-add them, in an order that CPU threads vary)
+    x_slots = xf.view(L, n_l, 1, d).expand(L, n_l, k, d).reshape(L * n_l * k, d)
     send_x = torch.zeros((L * S + 1, d), dtype=x.dtype, device=dev)
-    send_x.index_copy_(0, into, xf[(rows * n_l + t_s).view(-1)])
+    send_x.index_copy_(0, into, x_slots[(rows * (n_l * k) + order).view(-1)])
+    del x_slots
     send_e = torch.full((L * S + 1,), e_l, dtype=torch.long, device=dev)  # e_l marks an empty slot
     send_e.index_copy_(0, into, (top_i - dest * e_l).gather(1, order).view(-1))
     send_g = torch.zeros((L * S + 1,), dtype=x.dtype, device=dev)
@@ -527,24 +583,30 @@ def moe_ep_rows(m: MoEConfig, lp: dict, x: torch.Tensor, router: torch.Tensor, b
     """EP on token rows laid out as `models.dense_mesh` holds its residual:
     x (local engines…, B_l, S, D), the B rows split over the mesh axes
     `batch` (in the mesh's order; empty: every engine holds them all) and
-    held once along the others; `lp`'s expert stacks laid out by
-    `shard_experts`; router (1…, D, E), whole and held once.  Returns the
-    routed output in x's layout.
+    held once along the others; `lp`'s expert stacks laid out as
+    `shard_experts` lays them (or gathered so by `zero3_expert_slabs`);
+    router (1…, D, E), whole and held once.  Returns the routed output in
+    x's layout.
 
     The reference routes the flat B·S tokens, padded to a multiple of the
     engine count and split into contiguous blocks over (data axes…, model),
     and sizes each engine's capacities from its block.  Where the rows split
-    over every data axis and B_l·S divides over "model", engine (g, i)'s
-    block is block i of data row g's own tokens: each engine takes it from
-    the rows it holds, and the output is gathered over "model" only.
-    Anywhere else (a one-slot prompt held once along "data", a decode batch
-    smaller than the engine count, a B_l·S that "model" does not divide)
-    the rows are gathered over `batch` first, routed as `moe_block` routes a
-    whole batch, and each engine takes its own rows of the output."""
+    over all of those axes in that order ("fsdp"), an engine's own rows are
+    its block: each routes them in place, and nothing is gathered.  Where
+    they split over every data axis and B_l·S divides over "model" (tp_sp),
+    engine (g, i)'s block is block i of data row g's own tokens: each engine
+    takes it from the rows it holds, and the output is gathered over "model"
+    only.  Anywhere else (a one-slot prompt held once along every axis, a
+    decode batch smaller than the engine count, a B_l·S that "model" does
+    not divide) the rows are gathered over `batch` first, routed as
+    `moe_block` routes a whole batch, and each engine takes its own rows of
+    the output."""
     e_l = _ep_slab_width(m, lp, mesh)
     n_axes, axes = len(mesh.axis_names), _token_axes(m, mesh)
     b_l, s, d = x.shape[-3:]
     flat = x.reshape(*x.shape[:n_axes], b_l * s, d)
+    if tuple(batch) == axes:
+        return _ep_engines(m, lp, flat, router, mesh, e_l).reshape(x.shape)
     if tuple(batch) == axes[:-1] and (b_l * s) % mesh.shape[m.ep_axis] == 0:
         own = own_block(mesh, mesh.enter(flat, m.ep_axis), m.ep_axis, n_axes)
         out = _ep_engines(m, lp, own, router, mesh, e_l)

@@ -19,13 +19,15 @@ What changes:
     model's `forward` and `loss_fn` on a mesh are Megatron TP or FSDP as
     `cfg.rules` says (`models.dense_mesh`): every leaf laid out by
     `shard_params` as `param_specs` says, (local engines…, [L,] block…), and
-    whole params refused.  An MoE model with impl="ep_shardmap" under tp_sp
-    runs the same layer with its FFN by EP over "model" on each engine's
-    own tokens (`moe.moe_ep_rows`): attention, norms, embedding, lm_head,
-    router and shared expert laid out by `param_specs`, the expert stacks
+    whole params refused.  An MoE model with impl="ep_shardmap" runs the
+    same layer with its FFN by EP over "model" on each engine's own tokens
+    (`moe.moe_ep_rows`): attention, norms, embedding, lm_head, router and
+    shared expert laid out by `param_specs`; under tp_sp the expert stacks
     by `moe.shard_experts` ((local engines…, L, e_l, ·, ·), the padded
-    count).  An MoE model under "fsdp" on a mesh is refused (not ported);
-    one with impl="local" ignores the mesh and takes whole params.  A
+    count), under "fsdp" by `param_specs` too (ZeRO-3: the real experts
+    whole, d_model over ("data", "model")), gathered into EP's slab at use
+    (`moe.zero3_expert_slabs`).  One with impl="local" ignores the mesh
+    and takes whole params.  A
     laid-out stack's layer axis follows the local-engine prefix, and the
     split and the recompute carry it along.  `prefill` and the decode
     steps of a model laid out on a mesh serve the same way over a KV cache
@@ -234,45 +236,40 @@ def cast_params(params: dict, cfg: TransformerConfig, *, device: torch.device | 
 def _laid_out(cfg: TransformerConfig, mesh) -> bool:
     """Whether the model runs on `mesh` with every leaf and the KV cache laid
     out (`models.dense_mesh`): a dense model, or an MoE model with
-    impl="ep_shardmap" under tp_sp (its experts by EP over "model").  An MoE
-    model with impl="local" keeps everything whole and ignores the mesh,
-    under either strategy.  An EP MoE model under "fsdp" on a mesh is
-    refused: ROADMAP.md, Queue A 9b item 8b."""
+    impl="ep_shardmap" (its experts by EP over "model"), under either
+    strategy.  An MoE model with impl="local" keeps everything whole and
+    ignores the mesh, under either strategy."""
     if mesh is None:
         return False
-    if cfg.moe is None:
-        return True
-    if not _ep(cfg):
-        return False
-    if cfg.rules.strategy == "fsdp":
-        raise NotImplementedError("an EP MoE model on a mesh under the 'fsdp' strategy is not ported (ROADMAP.md, "
-                                  "Queue A 9b item 8b, the reference's FSDP layout of the expert stacks); use "
-                                  "MeshRules(strategy='tp_sp')")
-    return True
+    return cfg.moe is None or cfg.moe.impl == "ep_shardmap"
 
 
-def _ep(cfg: TransformerConfig) -> bool:
-    return cfg.moe is not None and cfg.moe.impl == "ep_shardmap"
+def _ep_slab_layout(cfg: TransformerConfig) -> bool:
+    """Whether `shard_params` lays the expert stacks out as EP's slab
+    (`moe.shard_experts`, the padded count): EP under tp_sp.  Under "fsdp"
+    they stay as `param_specs` lays them (ZeRO-3, the real count)."""
+    return cfg.moe is not None and cfg.rules.strategy != "fsdp"
 
 
 def _layout_specs(cfg: TransformerConfig, mesh) -> dict:
     """The spec tree of the params as `shard_params` lays them out on `mesh`:
-    `param_specs(cfg, mesh)`, with EP's expert stacks by `moe.ep_specs` (over
-    the padded count), the layout EP takes."""
+    `param_specs(cfg, mesh)`; under tp_sp with EP's expert stacks by
+    `moe.ep_specs` (over the padded count), the layout EP takes."""
     specs = param_specs(cfg, mesh)
-    if cfg.moe is not None:
+    if _ep_slab_layout(cfg):
         specs["layers"].update(moe_lib.ep_specs(cfg.moe, prefix=1))
     return specs
 
 
 def _whole_shapes(cfg: TransformerConfig, mesh) -> dict:
-    """{leaf path: whole shape} of the tree `shard_params` lays out, the
-    expert stacks padded to a multiple of the EP axis."""
+    """{leaf path: whole shape} of the tree `shard_params` lays out, under
+    tp_sp the expert stacks padded to a multiple of the EP axis (under
+    "fsdp" the real count: the reference pads at use only)."""
     shapes = {("embed",): (cfg.vocab, cfg.d_model), ("final_norm",): (cfg.d_model,)}
     if not cfg.tie_embeddings:
         shapes[("lm_head",)] = (cfg.d_model, cfg.vocab)
     for k, s in layer_shapes(cfg).items():
-        if cfg.moe is not None and k in moe_lib.EXPERT_KEYS:
+        if _ep_slab_layout(cfg) and k in moe_lib.EXPERT_KEYS:
             s = (cfg.moe.padded_experts(mesh.shape[cfg.moe.ep_axis]), *s[1:])
         shapes[("layers", k)] = (cfg.n_layers, *s)
     return shapes
@@ -282,9 +279,10 @@ def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
     """The tree as the model takes it on `mesh`: every leaf laid out by
     `sharding.shard_tensor` (a replicated leaf as (1…, ·)) — a dense model
     as `param_specs(cfg, mesh)` says, for Megatron TP or FSDP; an MoE model
-    with impl="ep_shardmap" (tp_sp) the same, its expert stacks by
-    `moe.shard_experts` (padded, this process's experts only).  An MoE model
-    with impl="local": `params`.  A laid-out stack keeps the layers
+    with impl="ep_shardmap" the same, under tp_sp its expert stacks by
+    `moe.shard_experts` (padded, this process's experts only), under "fsdp"
+    by `param_specs` (ZeRO-3, the real experts).  An MoE model with
+    impl="local": `params`.  A laid-out stack keeps the layers
     outermost in memory, (local engines…, L, ·…) stored layer-major: one
     layer's block is then contiguous over the local engines, as the layers
     read it, and not copied every layer."""
@@ -297,10 +295,10 @@ def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
 
     specs = _layout_specs(cfg, mesh)
     layers = dict(params["layers"])
-    if cfg.moe is not None:  # the experts padded and laid out; the other leaves passed on whole
+    experts = moe_lib.EXPERT_KEYS if _ep_slab_layout(cfg) else ()
+    if experts:  # the experts padded and laid out; the other leaves passed on whole
         layers = moe_lib.shard_experts(cfg.moe, layers, mesh, prefix=1)
     out = {k: shard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
-    experts = moe_lib.EXPERT_KEYS if cfg.moe is not None else ()
     out["layers"] = {}
     for k in list(layers):  # one leaf's intermediate copy alive at a time
         v = layers.pop(k)
@@ -310,13 +308,13 @@ def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
 
 def unshard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
     """The inverse of `shard_params` (a gradient tree too): whole leaves, the
-    padded experts dropped."""
+    padded experts (tp_sp) dropped."""
     if not _laid_out(cfg, mesh):
         return params
     specs = _layout_specs(cfg, mesh)
     out = {k: unshard_tensor(v, specs[k], mesh) for k, v in params.items() if k != "layers"}
     layers = {k: unshard_tensor(v, specs["layers"][k], mesh) for k, v in params["layers"].items()}
-    if cfg.moe is not None:
+    if _ep_slab_layout(cfg):
         layers.update({k: layers[k].narrow(1, 0, cfg.moe.num_experts) for k in moe_lib.EXPERT_KEYS})
     out["layers"] = layers
     return out
@@ -353,7 +351,7 @@ def _whole_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
     the mesh); raises for params laid out on it."""
     if mesh is not None and params["embed"].dim() != 2:
         raise NotImplementedError(f"MoE impl={cfg.moe.impl!r} takes whole params; these are laid out on the mesh "
-                                  "(transformer.shard_params lays them out for impl='ep_shardmap' under tp_sp only)")
+                                  "(transformer.shard_params lays them out for impl='ep_shardmap' only)")
     return params
 
 
@@ -456,7 +454,7 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor
 def forward(params: dict, tokens, cfg: TransformerConfig, *, mesh=None) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V).  `mesh`: the engine mesh a dense
     model (Megatron TP / FSDP) or an MoE model with impl="ep_shardmap"
-    (tp_sp: TP attention, EP experts) runs on (`models.dense_mesh`: its
+    (TP or FSDP attention, EP experts) runs on (`models.dense_mesh`: its
     params laid out by `shard_params`, the logits whole on every process);
     an MoE model with impl="local" ignores it."""
     if _laid_out(cfg, mesh):

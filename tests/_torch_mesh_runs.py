@@ -1,8 +1,9 @@
 """The port's engine mesh over gloo on the CPU, for `tests/test_torch_distributed.py`,
 `tests/test_torch_halo.py`, `tests/test_torch_mesh2d.py`, `tests/test_torch_moe_ep.py`,
-`tests/test_torch_recsys_psum.py`, `tests/test_torch_transformer_tp_serve.py`
-and `tests/test_torch_moe_tp_serve.py` (the `dense_tp_serve` and
-`moe_tp_serve` jobs: logits, and each rank's KV cache block) and their
+`tests/test_torch_recsys_psum.py`, `tests/test_torch_transformer_tp_serve.py`,
+`tests/test_torch_moe_tp_serve.py` and `tests/test_torch_moe_fsdp.py` (the
+`dense_tp_serve`, `moe_tp_serve` and `moe_fsdp` jobs: logits, and each
+rank's KV cache block; `moe_fsdp` also one training step) and their
 training counterparts (`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`
 and `tests/test_torch_transformer_tp.py`, the `*_train` jobs:
 every gradient and the params after one AdamW step, by leaf path; a rank
@@ -384,12 +385,89 @@ def moe_tp_serve_runs(mesh) -> dict:
     return out | {"engines": mesh.local_engines}
 
 
+def moe_fsdp_runs(mesh) -> dict:
+    """The smoke olmoe-1b-7b and qwen2-moe-a2.7b with EP under "fsdp" (every
+    leaf, the ZeRO-3 expert stacks and the KV cache laid out) at
+    capacity_factor 1.25: serving as `moe_tp_serve_runs` serves (a prefill
+    and decode steps of 8 rows, 2 an engine: each engine routes its own
+    rows; a one-slot prefill, routed over the reference's padded flat
+    layout) — the logits, whole, and the local cache blocks — and one
+    training step of each on a batch of 8 rows split over both axes:
+    "<arch>/grad/<path>", "<arch>/param/<path>" (a rank's own block of every
+    laid-out leaf) and "<arch>/loss"."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+
+    rng = np.random.default_rng(29)
+    out = {}
+    for name in ("olmoe-1b-7b", "qwen2-moe-a2.7b"):
+        cfg = get_arch(name).smoke_config()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep_shardmap"),
+                                  rules=MeshRules(strategy="fsdp"))
+        params = tfm.shard_params(tfm.init_params(cfg, 5, device="cpu"), cfg, mesh)
+        cache = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 9)))
+        offs = torch.from_numpy(rng.integers(0, 3, 8))
+        steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))) for _ in range(3)]
+        with torch.no_grad():
+            run = {"prefill": tfm.prefill(params, toks, cache, cfg, mesh=mesh)[0],
+                   "decode": tfm.decode_step(params, cache, 9, steps[0], cfg, mesh=mesh)[0]}
+            for i in range(2):
+                run[f"batched{i}"] = tfm.decode_step_batched_pos(params, cache, 10 + offs + i, steps[i + 1], cfg,
+                                                                 mesh=mesh)[0]
+            run["cache_k"], run["cache_v"] = cache["k"], cache["v"]
+            slot = tfm.init_kv_cache(cfg, 8, 16, torch.float32, device="cpu", mesh=mesh)
+            run["slot_logits"] = tfm.prefill(params, toks[1:2, :7], slot, cfg, mesh=mesh, slot=5)[0]
+            run["slot_cache_k"] = slot["k"]
+        out.update({f"{name}/{k}": v.numpy() for k, v in run.items()})
+        train = dataclasses.replace(cfg, dtype=torch.float32)
+        seq = rng.integers(0, cfg.vocab, (8, 13))
+        batch = {"tokens": torch.from_numpy(seq[:, :-1]), "labels": torch.from_numpy(seq[:, 1:])}
+        step = train_step_runs(lambda p: tfm.loss_fn(p, batch, train, mesh=mesh), params, mesh,
+                               tfm.sharded_specs(train, mesh))
+        out.update({f"{name}/{k}": v for k, v in step.items()})
+    out.update(_whole_stacks_ffn(mesh, rng))
+    return out | {"engines": mesh.local_engines}
+
+
+def _whole_stacks_ffn(mesh, rng) -> dict:
+    """`dense_mesh._moe_ffn` under "fsdp" where d_model (30) does not divide
+    over the engines, so the expert stacks stay whole: 5 experts (padded to
+    6) top-2 with a shared expert at capacity_factor 1.25 on 8 × 5 rows split
+    over both axes, its output and the gradients of a seeded cotangent with
+    respect to the block's laid-out leaves ("ffn_whole/...").  The FFN
+    widths are multiples of 16: a CPU elementwise op vectorizes a
+    contiguous tensor by its whole count and computes a short tail apart,
+    so SiLU rounds an engine's last entries otherwise where a row's width
+    leaves its block off the vector grid."""
+    from repro_torch.models import dense_mesh, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import P, MeshRules, shard_tensor
+
+    m = moe.MoEConfig(5, 2, 32, d_ff_shared=32, capacity_factor=1.25, impl="ep_shardmap")
+    cfg = tfm.TransformerConfig("ffn", n_layers=1, d_model=30, n_heads=2, n_kv_heads=1, d_ff=8, vocab=8, moe=m,
+                                dtype=torch.float32, rules=MeshRules(strategy="fsdp"))
+    laid = tfm.shard_params(tfm.init_params(cfg, 6, device="cpu"), cfg, mesh)
+    layer = {k: v.requires_grad_(True) for k, v in laid["layers"].items()}
+    plan = dense_mesh._plan(cfg, mesh, tfm._layout_specs(cfg, mesh), 8)
+    spec = P(plan.batch, None, None)
+    x = shard_tensor(torch.from_numpy(rng.standard_normal((8, 5, 30)).astype(np.float32)), spec, mesh)
+    dy = shard_tensor(torch.from_numpy(rng.standard_normal((8, 5, 30)).astype(np.float32)), spec, mesh)
+    out = dense_mesh._moe_ffn(m, plan, x, frozenset(plan.batch), tfm._layers({"layers": layer}, 1)[0])
+    keys = ["mlp_norm", *moe.layer_shapes(m, cfg.d_model)]
+    grads = torch.autograd.grad((out * dy).sum(), [layer[k] for k in keys])
+    return {"ffn_whole/out": out.detach().numpy(), **{f"ffn_whole/grad/{k}": g.numpy() for k, g in zip(keys, grads)}}
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
         "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
         "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs,
-        "dense_tp_serve": dense_tp_serve_runs, "moe_tp_serve": moe_tp_serve_runs}
+        "dense_tp_serve": dense_tp_serve_runs, "moe_tp_serve": moe_tp_serve_runs, "moe_fsdp": moe_fsdp_runs}
 JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train",
-           "dense_tp_serve", "moe_tp_serve")
+           "dense_tp_serve", "moe_tp_serve", "moe_fsdp")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):

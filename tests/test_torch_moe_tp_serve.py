@@ -27,9 +27,11 @@ JAX package on the same seeded numpy inputs, in float32.
 * (c) A one-slot prefill writes its slot's row only.
 * (d) `launch.serve.build_engine(..., mesh=)` on stacked (2, 2) serves the
   tokens that it serves without a mesh (impl="local").
-* (e) Refused: an EP MoE config under "fsdp" on a mesh, impl="local" given
-  laid-out params, whole params given to the mesh; impl="local" on a mesh
-  runs whole under either strategy.
+* (e) An EP MoE config under "fsdp" on a mesh is laid out (the expert
+  stacks ZeRO-3, by `param_specs`) and served, its forward that of one
+  device (`tests/test_torch_moe_fsdp.py` holds it against the reference);
+  refused: impl="local" given laid-out params, whole params given to the
+  mesh; impl="local" on a mesh runs whole under either strategy.
 * (f) One gloo run (4 spawned ranks on a 2 × 2 mesh, a permutation that is
   not the identity, `tests/_torch_mesh_runs.py`'s `moe_tp_serve` job): the
   logits and each rank's cache block bit-equal to stacked.
@@ -301,11 +303,14 @@ def test_other_layouts_are_refused():
     params = tfm.init_params(cfg, 0, device="cpu")
     toks = torch.zeros((4, 5), dtype=torch.long)
     fsdp = dataclasses.replace(cfg, rules=MeshRules(strategy="fsdp"))
-    for call in (lambda: tfm.shard_params(params, fsdp, mesh), lambda: tfm.forward(params, toks, fsdp, mesh=mesh),
-                 lambda: tfm.init_kv_cache(fsdp, 4, 8, device="cpu", mesh=mesh),
-                 lambda: build_engine(fsdp, params, slots=4, max_seq=8, device="cpu", mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            call()
+    laid_fsdp = tfm.shard_params(params, fsdp, mesh)  # ZeRO-3 stacks: (data, model, L, E, D / 4, F), the real E
+    assert laid_fsdp["layers"]["we_gate"].shape == (2, 2, cfg.n_layers, cfg.moe.num_experts, cfg.d_model // 4,
+                                                    cfg.moe.d_ff_expert)
+    with torch.no_grad():
+        got = tfm.forward(laid_fsdp, toks, fsdp, mesh=mesh)
+        assert float((got - tfm.forward(params, toks, local)).abs().max()) <= 1e-5 * float(got.abs().max())
+    assert tuple(tfm.init_kv_cache(fsdp, 4, 8, device="cpu", mesh=mesh)["k"].shape[:2]) == (2, 2)
+    assert build_engine(fsdp, params, slots=4, max_seq=8, device="cpu", mesh=mesh).cache["k"].shape[:2] == (2, 2)
     laid = tfm.shard_params(params, cfg, mesh)
     cache = tfm.init_kv_cache(local, 4, 8, torch.float32, device="cpu")
     for call in (lambda: tfm.forward(laid, toks, local, mesh=mesh), lambda: tfm.prefill(laid, toks, cache, local,
