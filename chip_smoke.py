@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths, each driven with its kernels' launch counts set to 0 just
+Thirteen paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -135,6 +135,14 @@ before and read just after (the paper pipeline once more through its CLI):
   plain per-engine loop; NCCL at world size 1; its kernel is
   `flash_attention` (once a layer a prefill, every model engine's 2 of 16
   heads folded into one launch).
+* the cost model (`launch.roofline`, `launch.perf.measure_cell`): three
+  cells of the dry run on one device at a stated cut — llama3.2-3b
+  `train_4k` at batch 8 × 128 (baseline and `bf16params`), dcn-v2
+  `serve_bulk` at its published batch, gin-tu at `ogb_products`' width on
+  amazon — each step counted on the card and on 'meta' and timed, the
+  counted bound set beside the measured step; its kernels are
+  `flash_attention`, `flash_attention_bwd`, `embedding_bag` and
+  `segment_spmm`, each counted once at its entry.
 
 Phases, one JSON line each:
 
@@ -321,6 +329,14 @@ Phases, one JSON line each:
              prefill and decode steps over NCCL at world size 1 bit-equal to
              stacked; the attention kernels at the fsdp per-engine training
              shape against their plain versions, bounds and SDPA
+  roofline   the cost model of `launch.roofline` against the card
+             (`launch.perf.measure_cell`): llama3.2-3b train_4k at batch 8
+             × 128 (baseline and bf16params), dcn-v2 serve_bulk at 262,144
+             and gin-tu at ogb_products' width on amazon, each on one
+             device, counted on the card and on 'meta' (FLOPs by dtype and
+             bytes equal exactly) and timed over 5 warm steps, the counted
+             compute time at most 1.05 × the step's; the halo GIN counted
+             on 'meta' over 16 engines
 
 Every line carries `seconds`, the time since the line before it.
 
@@ -365,11 +381,21 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the tensor
-# cores, dense bf16 tensor-core rate
-H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
-H100_BF16_FLOPS = 989e12
+# the card's peaks, the kernels' bounds and the mesh paths' byte counters: one cost model for the
+# script and the package (NVIDIA H100 80GB HBM3 at 700 W, from the data sheet)
+from repro_torch.launch.roofline import (  # noqa: E402
+    attention_bound_ms,
+    attention_bwd_bound_ms,
+    attention_flops,
+    bag_bound_ms,
+    bucket_bound_ms,
+    dense_serve_bytes,
+    dense_step_bytes,
+    gin_reduce_bound_ms,
+    moe_decode_bytes,
+    moe_tp_bytes,
+    reduce_bound_ms,
+)
 
 TEST_SHAPES = [(50, 16, 8), (100, 7, 3), (30, 4, 16), (64, 32, 1)]  # (N, R, W)
 TEST_DIMS = [1, 16, 64, 128, 256]
@@ -417,7 +443,6 @@ BAG_PATH_BATCH = 65_536
 BAG_MULTI_HOT, BAG_MULTI_BATCH = 8, 8_192
 BAG_SOURCE = "src/repro_torch/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag/kernel.py:51"
-SECTOR_BYTES = 32  # the unit in which device memory serves a gathered row
 
 # the sweep CLI: the backpressure and faults grids as users run them (amazon
 # and soc-pokec), and the reference package's committed numpy run of the
@@ -563,38 +588,6 @@ class Timer:
 
 
 # --------------------------------------------------------------------------- kernels
-
-
-def bucket_bound_ms(x: torch.Tensor, cols: torch.Tensor, wts: torch.Tensor | None) -> tuple[float, str]:
-    """Least time for one `ell_spmm` call on these inputs: bytes (cols and wts
-    read once, each gathered x row once, the output written once) over the
-    memory rate, against multiply-adds on the real entries over the f32 rate."""
-    n, d = x.shape
-    real = cols[(cols >= 0) & (cols < n)]
-    touched = int(torch.unique(real).numel())
-    item = x.element_size()
-    nbytes = cols.numel() * 4 + (wts.numel() * 4 if wts is not None else 0)
-    nbytes += touched * d * item + cols.shape[0] * d * item
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * real.numel() * d / H100_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def reduce_bound_ms(x: torch.Tensor, ell) -> tuple[float, str]:
-    """Least time for one whole `segment_spmm` reduce on these inputs: the flat
-    cols, weights and rows, the work table and the zero list read once, each
-    gathered x row once, the (N, D) output written once, over the memory rate,
-    against multiply-adds on the real entries over the f32 rate."""
-    n, d = x.shape
-    work = ell.work()
-    real = work.cols[(work.cols >= 0) & (work.cols < n)]
-    item = x.element_size()
-    nbytes = (work.cols.numel() + work.rows.numel() + work.zero_rows.numel()) * 4 + work.items.numel() * 8
-    nbytes += (work.weights.numel() * 4 if work.weights is not None else 0)
-    nbytes += int(torch.unique(real).numel()) * d * item + n * d * item
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * real.numel() * d / H100_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def per_bucket_reduce(x: torch.Tensor, ell) -> torch.Tensor:
@@ -1166,18 +1159,6 @@ def graphcast_batch(n_grid: int, cfg, seed: int) -> dict:
         b[f"{pre}_feat"] = rng.standard_normal((cnt, 4)).astype(np.float32)
         b[f"{pre}_mask"] = np.ones(cnt, bool)
     return b
-
-
-def gin_reduce_bound_ms(x: torch.Tensor, ell) -> float:
-    """Least time for one GIN neighbour sum on these inputs: the rows of x that
-    some edge reads, the real cols (one int32 an edge) and the (N, D) output,
-    each once, over the memory rate (it is bound by bytes: one multiply-add
-    an edge and feature)."""
-    n, d = x.shape
-    cols = ell.work().cols
-    real = cols[(cols >= 0) & (cols < n)]
-    nbytes = int(torch.unique(real).numel()) * d * 4 + real.numel() * 4 + n * d * 4
-    return nbytes / H100_BYTES_PER_S * 1e3
 
 
 def without_hub_items(ell):
@@ -1806,40 +1787,6 @@ def phase_distributed(device: torch.device, graph, seed: int, smi: str | None, t
 
 
 # --------------------------------------------------------------------------- attention
-
-
-def attention_flops(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> float:
-    """The multiply-adds (×2) of QKᵀ and P·V on the score pairs the mask keeps."""
-    b, sq, hq, dh = q.shape
-    skv = k.shape[1]
-    if causal:  # query row i keeps keys 0 .. i + q_offset
-        pairs = sum(min(skv, max(0, i + q_offset + 1)) for i in range(sq))
-    else:
-        pairs = sq * skv
-    return 4.0 * b * hq * dh * pairs
-
-
-def attention_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
-    """Least time for one `flash_attention` call on these inputs: q, k, v read
-    once and the output written once over the memory rate, against
-    `attention_flops` over the tensor-core (bf16) or CUDA-core (f32) rate."""
-    flops = attention_flops(q, k, causal, q_offset)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_ops = flops / (H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS)
-    t_bytes = nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def attention_bwd_bound_ms(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int) -> tuple[float, str]:
-    """Least time for one backward on these inputs: five products a kept
-    pair where the forward does two (2.5x `attention_flops`) over the
-    tensor-core or CUDA-core rate, against q, k, v, o, dO and lse read once
-    and dQ, dK, dV written once over the memory rate."""
-    flops = 2.5 * attention_flops(q, k, causal, q_offset)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + q.numel() // q.shape[-1] * 4
-    t_ops = flops / (H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS)
-    t_bytes = nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def attention_backward(device: torch.device, timer: Timer, qkv) -> dict:
@@ -2542,27 +2489,6 @@ def phase_train(device: torch.device, seed: int, smi: str | None, timer: Timer) 
 # --------------------------------------------------------------------------- embedding bag
 
 
-def bag_bound_ms(tables: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None) -> tuple[float, str, int]:
-    """Least time for one `embedding_bag` call on these inputs: the ids (and
-    weights) read once, each distinct (t, id) row once in whole 32-byte
-    sectors, and the output written once, over the memory rate — hot Zipf
-    rows come again and again, and a bound that counted every gathered row
-    would be beaten by the L2 — against the multiply-adds of the real slots
-    over the f32 rate.  Returns (ms, what bounds it, distinct rows)."""
-    t, v, d = tables.shape
-    b = ids.shape[0]
-    valid = (ids >= 0) & (ids < v)
-    rows = (torch.arange(t, device=ids.device)[None, :, None] * v + ids.long())[valid]
-    distinct = int(torch.unique(rows).numel())
-    item = tables.element_size()
-    row_bytes = -(-d * item // SECTOR_BYTES) * SECTOR_BYTES
-    nbytes = distinct * row_bytes + ids.numel() * 4 + (weights.numel() * 4 if weights is not None else 0)
-    nbytes += b * t * d * item
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * int(valid.sum()) * d / H100_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), distinct
-
-
 def library_bag(tables: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None):
     """The same function as one `F.embedding_bag` call (the yardstick; used
     nowhere in the port): tables viewed as (T·V, D), ids offset by t·V and
@@ -3098,26 +3024,6 @@ def moe_routes(calls: list, m, n_layers: int) -> dict:
     skew = total.max(1).values.float() / (total.sum(1).float() / m.num_experts)
     return {"calls": per_call, "experts_hit_a_call": hit, "skew_by_layer": [round(float(s), 4) for s in skew],
             "skew_max": float(skew.max())}
-
-
-def moe_decode_bytes(cfg, experts_hit: float, pos: np.ndarray) -> dict:
-    """Bytes one decode step of `len(pos)` slots must move (bf16 weights, the
-    float32 router, cache rows read up to each slot's position and written
-    at it, logits out) over the memory rate: with every expert's weights
-    read, as the dense (E, C, D) product does, and with only the
-    `experts_hit` experts (summed over layers) that got a slot."""
-    m, d, L, dh = cfg.moe, cfg.d_model, cfg.n_layers, cfg.head_dim
-    b = len(pos)
-    expert = 3 * d * m.d_ff_expert * 2
-    other = L * (d * dh * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * dh * d) * 2  # attention weights
-    other += L * (3 * d * m.d_ff_shared + (d if m.d_ff_shared else 0)) * 2  # shared expert and its gate
-    other += L * d * m.num_experts * 4 + (2 * L + 1) * d * 2 + d * cfg.vocab * 2  # router, norms, head
-    other += b * d * 2 + b * cfg.vocab * 2  # embedding rows in, logits out
-    other += 2 * L * cfg.n_kv_heads * dh * 4 * (int((pos + 1).sum()) + b)  # float32 cache: read, write
-    dense, hit = L * m.num_experts * expert, experts_hit * expert
-    return {"expert_bytes_dense": dense, "expert_bytes_hit": hit, "other_bytes": other,
-            "bound_ms_dense": (dense + other) / H100_BYTES_PER_S * 1e3,
-            "bound_ms_hit_only": (hit + other) / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def moe_split(m, lp: dict, x: torch.Tensor, timer: Timer, n_layers: int, *, attention=None,
@@ -4511,50 +4417,6 @@ DENSE_F32_LAYERS = 2
 DENSE_NCCL_LAYERS = 2
 
 
-def gather_bytes(mesh, fsdp: set, shape: tuple, spec, itemsize: int) -> int:
-    """Bytes all engines receive in one FSDP gather of a leaf of `shape`
-    laid out by `spec`: over the `fsdp` axes its dims are split over (an
-    engine of a group of g receives g - 1 blocks)."""
-    axes = [a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)]
-    group = int(np.prod([mesh.shape[a] for a in axes if a in fsdp]))
-    split = int(np.prod([mesh.shape[a] for a in axes]))
-    return mesh.num_engines * (group - 1) * int(np.prod(shape)) * itemsize // split
-
-
-def dense_step_bytes(cfg, mesh, batch: int, seq: int) -> dict:
-    """The bytes one training step's collectives move on `mesh` under
-    `cfg.rules`, each as the port runs it (an all-gather-based collective: an
-    engine receives its group's other blocks), summed over the engines:
-    the FSDP gathers of the float32 weights (each layer's twice, forward and
-    recompute; the embedding's and lm_head's once) and their transposes' folds
-    (once each), the model-axis psums of the row-parallel partials (twice a
-    layer, forward and recompute) and the folds of Megatron's f in the
-    backward (the attention's and the FFN's inputs, lm_head's), in
-    `cfg.dtype`, the embedding's float32 psum, and the vocab-parallel
-    cross-entropy's three (max, sum of exponentials, gold logit)."""
-    from repro_torch.models import transformer as tfm
-
-    r, specs, engines = cfg.rules, tfm.param_specs(cfg, mesh), mesh.num_engines
-    fsdp = set((r.fsdp,) if isinstance(r.fsdp, str) else r.fsdp)
-
-    def gathered(shape, spec) -> int:  # a float32 leaf
-        return gather_bytes(mesh, fsdp, shape, spec, 4)
-
-    layer = sum(gathered(shape, specs["layers"][k][1:]) for k, shape in tfm.layer_shapes(cfg).items())
-    top = gathered((cfg.vocab, cfg.d_model), specs["embed"])
-    top += 0 if cfg.tie_embeddings else gathered((cfg.d_model, cfg.vocab), specs["lm_head"])
-    tp = mesh.shape[r.model] if r.model in mesh.shape else 1
-    rows = batch * seq // int(np.prod([mesh.shape[a] for a in r.batch if a in mesh.shape]))  # an engine's tokens
-    act = engines * (tp - 1) * rows * cfg.d_model  # one model-axis psum of (rows, d), in elements
-    item = torch.finfo(cfg.dtype).bits // 8
-    vocab_split = tuple(specs["embed"])[0] is not None
-    return {"fsdp_gathers": cfg.n_layers * 2 * layer + top, "reduce_scatters": cfg.n_layers * layer + top,
-            "model_psums": (cfg.n_layers * (2 * 2 + 2) + 1) * act * item,
-            "embedding_psum": act * 4 if vocab_split else 0,
-            "cross_entropy": engines * (tp - 1) * rows * 3 * 4 if vocab_split else 0,
-            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks"}
-
-
 def dense_train(device: torch.device, seed: int, mesh) -> tuple[dict, dict]:
     """(g): llama3.2-3b at its published width and depth trained
     DENSE_STEPS steps (batch DENSE_BATCH × 128) under tp_sp and fsdp on
@@ -4830,41 +4692,6 @@ SERVE_TP_TURNS = ("one_device", "tp_sp", "tp_sp", "one_device")
 SERVE_F32_ROWS, SERVE_F32_PROMPT, SERVE_F32_MAX_SEQ, SERVE_F32_STEPS = 16, (384, 513), 576, 8  # 16 rows: fsdp's 16
 SERVE_NCCL_LAYERS, SERVE_NCCL_ROWS, SERVE_NCCL_PROMPT, SERVE_NCCL_STEPS = 2, 4, 64, 4
 TP_PREFILL_S = 2048
-
-
-def dense_serve_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict:
-    """The bytes one forward of a served dense model (a prefill of `rows` ×
-    `seq` tokens, or a decode step of `rows` × 1) moves on `mesh` under
-    `cfg.rules`, each collective as the port runs it on a real mesh (an
-    all-gather-based collective: an engine receives its group's other
-    blocks), summed over the engines: the FSDP gathers of every weight in
-    `cfg.dtype` (once a forward), the model-axis psums of the row-parallel
-    partials (two a layer) and of the vocab-parallel embedding, in
-    `cfg.dtype`, and the gather of the last position's logits (over the
-    vocab's axes, and the batch's where `batch_split`: the rows split over
-    them, else every engine holds them all)."""
-    from repro_torch.models import transformer as tfm
-
-    r, specs, engines = cfg.rules, tfm.param_specs(cfg, mesh), mesh.num_engines
-    fsdp = set((r.fsdp,) if isinstance(r.fsdp, str) else r.fsdp)
-    item = torch.finfo(cfg.dtype).bits // 8
-
-    def gathered(shape, spec) -> int:
-        return gather_bytes(mesh, fsdp, shape, spec, item)
-
-    layer = sum(gathered(shape, specs["layers"][k][1:]) for k, shape in tfm.layer_shapes(cfg).items())
-    top = gathered((cfg.vocab, cfg.d_model), specs["embed"])
-    top += 0 if cfg.tie_embeddings else gathered((cfg.d_model, cfg.vocab), specs["lm_head"])
-    tp = mesh.shape[r.model] if r.model in mesh.shape else 1
-    b_size = int(np.prod([mesh.shape[a] for a in r.batch if a in mesh.shape])) if batch_split else 1
-    local_rows = rows // b_size
-    act = engines * (tp - 1) * local_rows * seq * cfg.d_model * item  # one model-axis psum
-    vocab_split = tuple(specs["embed"])[0] is not None
-    vocab_l = cfg.vocab // (tp if tuple(specs["lm_head"])[1] is not None else 1)
-    logits = engines * (b_size - 1) * local_rows * vocab_l + engines * (tp - 1) * rows * vocab_l
-    return {"fsdp_gathers": cfg.n_layers * layer + top, "model_psums": 2 * cfg.n_layers * act,
-            "embedding_psum": act if vocab_split else 0, "logits_gather": logits * item,
-            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks"}
 
 
 def serve_turn(cfg, params: dict, prompts: list, device: torch.device, mesh=None, *, new_tokens: int = SERVE_NEW,
@@ -5177,53 +5004,6 @@ MOE_TP_TURNS = ("local", "tp_ep", "tp_ep", "local")  # "tp_ep": the mesh's route
 MOE_ROUTE = {"tp_sp": "tp_ep", "fsdp": "fsdp_ep"}
 MOE_F32_LAYERS = 16  # olmoe's float32 weights laid out beside one device's copy: 2 × 27 GB, with the caches
 MOE_DROP_PROMPT = 2047  # a one-slot prompt that 16 engines do not divide: the reference's flat layout, padded
-
-
-def moe_tp_bytes(cfg, mesh, rows: int, seq: int, batch_split: bool) -> dict:
-    """The bytes one forward of an MoE model served under tp_sp with EP (a
-    prefill of `rows` × `seq` tokens, or a decode step of `rows` × 1) moves
-    on `mesh`, from the specs, each collective as the port runs it (an
-    all-gather-based collective: an engine receives its group's other
-    blocks), summed over the engines: the router's "data" gather (float32)
-    and the other FSDP gathers (attention, norms, shared expert, embedding,
-    lm_head, in `cfg.dtype`), the "model" psums (wo's, the shared expert's
-    ws_down, the embedding's), EP's all-to-alls (tokens there and outputs
-    back in `cfg.dtype`, and the expert ids, over the whole capacity-sized
-    buffers), EP's gathers (the rows over "data" where the blocks do not
-    coincide, every engine's output back), the last positions' logits."""
-    from repro_torch.models import moe as moe_lib
-    from repro_torch.models import transformer as tfm
-
-    m, specs, engines = cfg.moe, tfm.param_specs(cfg, mesh), mesh.num_engines
-    item, d = torch.finfo(cfg.dtype).bits // 8, cfg.d_model
-    tp, dp = mesh.shape["model"], mesh.shape["data"]
-    b_size = dp if batch_split else 1
-    b_l = rows // b_size
-    shapes = {k: s for k, s in tfm.layer_shapes(cfg).items() if k not in moe_lib.EXPERT_KEYS}
-    router = gather_bytes(mesh, {"data"}, shapes.pop("router"), specs["layers"]["router"][1:], 4)
-    layer = sum(gather_bytes(mesh, {"data"}, s, specs["layers"][k][1:], item) for k, s in shapes.items())
-    top = gather_bytes(mesh, {"data"}, (cfg.vocab, d), specs["embed"], item)
-    top += 0 if cfg.tie_embeddings else gather_bytes(mesh, {"data"}, (d, cfg.vocab), specs["lm_head"], item)
-    act = engines * (tp - 1) * b_l * seq * d * item  # one model-axis psum of the residual
-    coincide = batch_split and (b_l * seq) % tp == 0
-    n_l = -(-rows * seq // engines)
-    e_l = m.padded_experts(tp) // tp
-    cs, _ = moe_lib.ep_capacities(m, n_l, tp, e_l)
-    a2a = 2 * engines * tp * cs * d * item + engines * tp * cs * 8
-    if coincide:
-        gathers = engines * (tp - 1) * n_l * d * item
-    else:
-        gathers = engines * (engines - 1) * n_l * d * item + engines * (b_size - 1) * b_l * seq * d * item
-    vocab_l = cfg.vocab // (tp if tuple(specs["lm_head"])[1] is not None else 1)
-    logits = engines * (b_size - 1) * b_l * vocab_l + engines * (tp - 1) * rows * vocab_l
-    psums = (2 if m.d_ff_shared else 1) * act
-    return {"router_data_gathers": cfg.n_layers * router, "other_fsdp_gathers": cfg.n_layers * layer + top,
-            "model_psums": cfg.n_layers * psums, "embedding_psum": act if tuple(specs["embed"])[0] else 0,
-            "ep_all_to_alls": cfg.n_layers * a2a, "ep_gathers": cfg.n_layers * gathers,
-            "logits_gather": logits * item, "ep_tokens_an_engine": n_l, "Cs": cs,
-            "blocks_coincide": coincide,
-            "counted": "bytes all engines receive; an engine of a group of g receives g - 1 blocks; the "
-                       "all-to-alls whole (2·engines·model·Cs·d·itemsize and the ids)"}
 
 
 def dropped_share(calls: list) -> float:
@@ -5792,6 +5572,69 @@ def phase_mesh_moe_fsdp(device: torch.device, seed: int, smi: str | None, timer:
     return out, launches
 
 
+ROOFLINE_CELLS = (("llama3.2-3b", "train_4k", None), ("llama3.2-3b", "train_4k", "bf16params"),
+                  ("dcn-v2", "serve_bulk", None), ("gin-tu", "ogb_products", None))  # (arch, cell, variant)
+ROOFLINE_LM_CUT = {"batch": 8, "seq": 128}  # (b′)'s batch, at full width and depth
+ROOFLINE_DCN_BATCH = 262_144  # serve_bulk's published batch
+ROOFLINE_SLACK = 1.05  # the counted compute time may not exceed the measured step by more than this
+ROOFLINE_HALO_ENGINES = DIST_ENGINES
+
+
+def phase_roofline(device: torch.device, graph, seed: int, smi: str | None) -> dict:
+    """The counted roofline against the card (`launch.roofline`,
+    `launch.perf.measure_cell`): each of ROOFLINE_CELLS run on one device at
+    its cut (llama3.2-3b train_4k at ROOFLINE_LM_CUT, baseline and
+    bf16params; dcn-v2 serve_bulk at its published batch; gin-tu at
+    ogb_products' width on `graph`, amazon, by the ELL route), counted on the
+    card and on 'meta' (FLOPs by dtype and bytes must be equal exactly) and
+    timed over `launch.perf.MEASURED_STEPS` warm steps; the counted compute time must not
+    exceed ROOFLINE_SLACK × the measured step.  Then the `halo` variant
+    counted on 'meta' (no card) on amazon over ROOFLINE_HALO_ENGINES engines.
+    Returns the `roofline` line."""
+    from repro_torch.launch.dryrun import count_case, roofline_of
+    from repro_torch.launch.perf import MEASURED_STEPS, halo_case, measure_cell
+
+    t_phase = time.perf_counter()
+    cuts = {"llama3.2-3b": ROOFLINE_LM_CUT, "dcn-v2": {"batch": ROOFLINE_DCN_BATCH}, "gin-tu": {"graph": graph}}
+    cells = {}
+    for arch, cell, variant in ROOFLINE_CELLS:
+        t0 = time.perf_counter()
+        rec, launches = counted(lambda: measure_cell(arch, cell, variant, cut=cuts[arch], seed=seed, device=device,
+                                                     smi=smi))
+        m = rec["measured"]
+        key = f"{arch}.{cell}" + (f".{variant}" if variant else "")
+        check(rec["counts_equal_meta"], f"roofline {key}: the card counted {rec['flops_by_dtype']} FLOPs and "
+                                        f"{rec['hlo_bytes']} bytes, 'meta' {rec['meta']}")
+        check(rec["t_compute_s"] <= ROOFLINE_SLACK * m["s"],
+              f"roofline {key}: counted compute {rec['t_compute_s']} s above {ROOFLINE_SLACK} × the measured {m['s']} s")
+        cells[key] = {
+            "cut": m["cut"], "flops_by_dtype": rec["flops_by_dtype"], "bytes": rec["hlo_bytes"],
+            "counts_equal_meta": rec["counts_equal_meta"], "t_compute_s": rec["t_compute_s"],
+            "t_memory_s": rec["t_memory_s"], "t_collective_s": rec["t_collective_s"], "dominant": rec["dominant"],
+            "bound_s": max(rec["t_compute_s"], rec["t_memory_s"], rec["t_collective_s"]),
+            "measured_s": m["s"], "step_s": m["step_s"], "fraction": m["fraction"],
+            "t_compute_over_measured": m["t_compute_over_measured"],
+            "t_memory_over_measured": m["t_memory_over_measured"], "model_flops": rec["model_flops"],
+            "kernels_counted": rec["kernels"], "launches": {k: v for k, v in launches.items() if v},
+            "seconds": time.perf_counter() - t0}
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    case = halo_case(graph, ROOFLINE_HALO_ENGINES)
+    c = count_case(case)
+    halo = roofline_of(case, c, f"{ROOFLINE_HALO_ENGINES}").to_dict()
+    halo = {k: halo[k] for k in ("chips", "hlo_flops", "hlo_bytes", "coll_bytes", "coll_breakdown", "t_compute_s",
+                                 "t_memory_s", "t_collective_s", "dominant", "bytes_per_device")}
+    halo.update({"graph": graph.name, "engines": ROOFLINE_HALO_ENGINES, "kernels_counted": dict(c.kernels),
+                 "measured": False, "seconds": time.perf_counter() - t0})
+    out = {"cells": cells, "halo_gin_counted_on_meta": halo, "card": smi, "steps": MEASURED_STEPS,
+           "timing": "CUDA events around each warm step, the median; one device a cell",
+           "phase_seconds": time.perf_counter() - t_phase}
+    say("roofline", **out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5865,7 +5708,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     perm = np.asarray(dist_out["mapper"]["site_permutation"])
     _, train_mesh, halo_site = phase_mesh_train(device, graph, perm, args.seed, info["nvidia_smi"], timer)
-    del graph
     gc.collect()
     torch.cuda.empty_cache()
     dense, dense_launches = phase_mesh_dense(device, args.seed, info["nvidia_smi"], timer)
@@ -5878,6 +5720,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_fsdp, moe_fsdp_launches = phase_mesh_moe_fsdp(device, args.seed, info["nvidia_smi"], timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_roofline(device, graph, args.seed, info["nvidia_smi"])
+    del graph
     say("done", seconds=time.perf_counter() - t_all)
 
     print(json.dumps({"kernels": [{

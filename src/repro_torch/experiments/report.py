@@ -7,11 +7,12 @@ strings `experiments_md_issues` matches (`--grid <name>`, `**N
 configurations**`, `scale S; backend`, the `place_batch` count) are those of
 the reference's report, so the two reports' tables compare line for line.
 
-§Dry-run, §Roofline and the hillclimb part of §Perf tabulate XLA
-`cost_analysis` records.  The port writes none of its own yet (ROADMAP.md
-Queue A 10), so by default those sections render as absent: their
-directories (`DEFAULT_DRYRUN_DIR`, `DEFAULT_PERF_DIR`) are the port's own and
-do not exist.
+§Dry-run, §Roofline and the hillclimb part of §Perf tabulate per-cell cost
+records: the port's own, counted from its ops on 'meta'
+(`python -m repro_torch.launch.dryrun --all` writes `DEFAULT_DRYRUN_DIR`,
+`python -m repro_torch.launch.perf` writes `DEFAULT_PERF_DIR`), in the
+reference's keys, so the reference's XLA records render the same way.
+Where those directories do not exist the sections render as absent.
 """
 from __future__ import annotations
 
@@ -61,9 +62,9 @@ def fmt_gb(x):
 
 
 # --------------------------------------------------------------------------
-# §Dry-run / §Roofline artifact tables: XLA cost-model records (one JSON a
-# cell).  The port writes none until ROADMAP.md Queue A 10; these functions stay
-# so a report renders such records the way the reference does.
+# §Dry-run / §Roofline artifact tables: per-cell cost records (one JSON a
+# cell): the port's, counted by `launch.dryrun`, or the reference's XLA ones,
+# rendered alike.
 # --------------------------------------------------------------------------
 
 
@@ -102,7 +103,9 @@ def load_dryrun_records(out_dir: str) -> list[dict]:
 
 
 def roofline_table(recs: list[dict], mesh: str = "16x16") -> str:
-    """§Roofline: per (arch × cell), single-pod mesh only (assignment)."""
+    """§Roofline: per (arch × cell), single-pod mesh only (assignment): the
+    port's production (16, 16) engine mesh (`launch.mesh`), named as the
+    reference's."""
     rows = [
         "| arch | cell | t_compute (s) | t_memory (s) | t_coll (s) | dominant "
         "| MODEL_FLOPS | useful/HLO | roofline frac | HBM GiB/dev |",
@@ -122,10 +125,13 @@ def roofline_table(recs: list[dict], mesh: str = "16x16") -> str:
 
 
 def dryrun_table(recs: list[dict]) -> str:
-    """§Dry-run: every (arch × cell × mesh) status + headline numbers."""
+    """§Dry-run: every (arch × cell × mesh) status + headline numbers; the
+    last column is the compile time of the reference's XLA records, or the
+    counting time (`count_s`) of the port's."""
+    counted = any("count_s" in r for r in recs) and not any("compile_s" in r for r in recs)
     rows = [
         "| arch | cell | mesh | status | HLO FLOPs/dev | HLO bytes/dev | "
-        "coll bytes/dev | compile (s) |",
+        f"coll bytes/dev | {'count' if counted else 'compile'} (s) |",
         "|---|---|---|---|---|---|---|---|",
     ]
     for r in recs:
@@ -137,7 +143,7 @@ def dryrun_table(recs: list[dict]) -> str:
             rows.append(
                 f"| {r['arch']} | {r['cell']} | {r['mesh']} | ok | "
                 f"{fmt_e(r['hlo_flops'])} | {fmt_e(r['hlo_bytes'])} | "
-                f"{fmt_e(r['coll_bytes'])} | {r.get('compile_s', 0):.0f} |"
+                f"{fmt_e(r['coll_bytes'])} | {r.get('compile_s', r.get('count_s', 0)):.0f} |"
             )
         else:
             rows.append(
@@ -190,8 +196,9 @@ def _calibration_section(sweep: SweepResult, params: SimParams) -> str:
         f"| ALU op energy | {params.e_alu_per_op_j:.3g} J | calibrated |",
         f"| static power | {params.e_static_w:.3g} W | calibrated |",
         "",
-        "The port has no compiled-cost records of its own (§Dry-run, §Roofline"
-        " and the hillclimb of §Perf stay empty until ROADMAP.md Queue A 10).",
+        "§Dry-run, §Roofline and the hillclimb of §Perf tabulate the port's cost"
+        " records, counted from its ops on 'meta' (`python -m repro_torch.launch.dryrun"
+        " --all`, `python -m repro_torch.launch.perf`).",
         "",
         "### Workload regeneration (Table 2 → offline R-MAT)",
         "",
@@ -224,9 +231,9 @@ def _artifact_section(title: str, recs: list[dict], table: str) -> str:
         lines += [table, ""]
     else:
         lines += [
-            "_No compiled-artifact records found.  This section tabulates",
-            f"per-cell XLA cost records from `{DEFAULT_DRYRUN_DIR}/`, which the",
-            "port does not write yet (ROADMAP.md Queue A 10)._",
+            "_No cost records found.  This section tabulates the per-cell records",
+            f"in `{DEFAULT_DRYRUN_DIR}/`, which `python -m repro_torch.launch.dryrun",
+            "--all` writes._",
             "",
         ]
     return "\n".join(lines)
@@ -326,8 +333,8 @@ def _perf_section(sweep: SweepResult, perf_recs: list[dict]) -> str:
             )
     else:
         lines += [
-            "_No variant records found.  The port writes none yet (ROADMAP.md",
-            f"Queue A 10); records in `{DEFAULT_PERF_DIR}/` would be tabulated here._",
+            "_No variant records found.  `python -m repro_torch.launch.perf` writes",
+            f"them to `{DEFAULT_PERF_DIR}/`, which is tabulated here._",
         ]
     return "\n".join(lines)
 

@@ -47,6 +47,14 @@ gradient over engines: work done alike on every process (dcn-v2's dense
 layers after the data gather, the transformer around EP) already leaves the
 whole gradient on each, and a sum there would count it once an engine.
 
+Each collective counts itself to an active `obs.cost.CostCounter`
+(`count_collective`): its per-engine output bytes under the reference's op
+kind — `all_to_all` an all-to-all (and its transpose another), `all_gather`
+an all-gather, `psum` and `enter`'s backward fold an all-reduce — so both
+backends report the same counts.  On "stacked" the swap or the fold also
+runs as aten copies and adds, which the counter sees as memory bytes: those
+copies are what one card does in place of links.
+
 PageRank (a sum program whose process is the weighted product) reduces its
 partials through `kernels.segment_spmm`, one launch a step for all local
 engines: one ELL a run, block-diagonal over them, rows (engine, dst_key) and
@@ -67,6 +75,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.structs import EllBlocks, HostGraph, build_ell
 from repro_torch.graph.vertex_program import VertexProgram
 from repro_torch.kernels.segment_spmm.ops import segment_spmm
+from repro_torch.obs.cost import count_collective
 
 __all__ = ["EngineMesh", "make_mesh", "make_engines_mesh", "fold", "engine_sums", "ShardedVertexGraph",
            "DistributedEngine", "MESH_BACKENDS"]
@@ -184,7 +193,10 @@ class EngineMesh:
         "stacked", the swap of the axis with the block axis.  Its transpose is
         itself."""
         a, n = self.axis_index(axis), len(self.axis_sizes)
+        count_collective("all-to-all", lambda: (self.block_bytes(x), self.axis_sizes[a]))
         if self.backend == "stacked":
+            if torch.is_grad_enabled() and x.requires_grad:  # its transpose counts itself
+                return _StackedSwap.apply(x, a, n, self.axis_sizes[a])
             return x.transpose(a, n).contiguous()
         group, grank = self._groups[a]
         grank = torch.from_numpy(grank).to(x.device)
@@ -193,15 +205,26 @@ class EngineMesh:
         recv = _GroupAllToAll.apply(send, group)
         return recv.index_select(0, grank).reshape(*lead, *recv.shape)  # block i arrived from grank[i]
 
-    def all_gather(self, x: Tensor, axis: str | None = None) -> Tensor:
+    def all_gather(self, x: Tensor, axis: str | None = None, *, held: tuple[str, ...] = ()) -> Tensor:
         """Every engine's block along `axis`, in coordinate order: the local
         axis grows to the axis's size (on "stacked" `x` is returned as it
-        is).  Without an axis on a 1-D mesh: x (L, …) → (P, …)."""
+        is).  Without an axis on a 1-D mesh: x (L, …) → (P, …).  `held`: the
+        axes an earlier gather filled, along which each engine holds every
+        block (their local axes are data, not engines, for the count)."""
+        def cost():
+            group = self.num_engines if axis is None else self.axis_sizes[self.axis_index(axis)]
+            return self.block_bytes(x, held) * group, group
+
+        count_collective("all-gather", cost)
+        return self._gather(x, axis)
+
+    def _gather(self, x: Tensor, axis: str | None = None) -> Tensor:
+        """`all_gather` without its count (`psum`'s own gather)."""
         if self.backend == "stacked":
             return x
         if axis is None and len(self.axis_names) > 1:
             for name in self.axis_names:
-                x = self.all_gather(x, name)
+                x = self._gather(x, name)
             return x
         a = self.axis_index(axis)
         group, grank = self._groups[a]
@@ -214,11 +237,19 @@ class EngineMesh:
         the row).  Without an axis: x (local engines…, …) → (…), the sum over
         every engine in row-major engine order."""
         n = len(self.axis_sizes)
+        count_collective("all-reduce", lambda: (
+            self.block_bytes(x), self.num_engines if axis is None else self.axis_sizes[self.axis_index(axis)]))
         if axis is None:
-            full = self.all_gather(x)
+            full = self._gather(x)
             return fold(full.reshape(-1, *full.shape[n:]), 0)
         a = self.axis_index(axis)
-        return fold(self.all_gather(x, axis), a).unsqueeze(a)
+        return fold(self._gather(x, axis), a).unsqueeze(a)
+
+    def block_bytes(self, x: Tensor, held: tuple[str, ...] = ()) -> int:
+        """The bytes one engine holds of `x` (local engines…, block…): its
+        block, and along the `held` axes every engine's."""
+        engines = [x.shape[i] for i, name in enumerate(self.axis_names) if name not in held]
+        return x.numel() * x.element_size() // max(1, int(np.prod(engines)))
 
     def enter(self, x: Tensor, axes: str | tuple[str, ...] | None = None) -> Tensor:
         """`x` (local engines…, …), the same on every engine along `axes`
@@ -251,7 +282,25 @@ class _GroupAllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        count_collective("all-to-all", lambda: (g.numel() * g.element_size(), dist.get_world_size(ctx.group)))
         return _GroupAllToAll.forward(ctx, g.contiguous(), ctx.group), None
+
+
+class _StackedSwap(torch.autograd.Function):
+    """"stacked"'s exchange: the swap of local axis `a` with block axis `n`
+    (a copy).  Its transpose is the same swap (a view, as autograd's own
+    transpose of it is), counted as the exchange it stands for."""
+
+    @staticmethod
+    def forward(ctx, x, a, n, group):
+        ctx.a, ctx.n, ctx.group = a, n, group
+        return x.transpose(a, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        count_collective("all-to-all", lambda: (g.numel() * g.element_size() // int(np.prod(g.shape[:ctx.n])),
+                                                ctx.group))
+        return g.transpose(ctx.a, ctx.n), None, None, None
 
 
 class _GroupAllGather(torch.autograd.Function):
@@ -287,7 +336,11 @@ class _Enter(torch.autograd.Function):
     def backward(ctx, g):
         mesh = ctx.mesh
         for a in ctx.dims:
-            g = fold(g, a).unsqueeze(a) if mesh.backend == "stacked" else mesh.psum(g, mesh.axis_names[a])
+            if mesh.backend == "stacked":  # the fold is the all-reduce a real mesh runs (psum counts its own)
+                count_collective("all-reduce", lambda: (mesh.block_bytes(g), mesh.axis_sizes[a]))
+                g = fold(g, a).unsqueeze(a)
+            else:
+                g = mesh.psum(g, mesh.axis_names[a])
         return g, None, None
 
 

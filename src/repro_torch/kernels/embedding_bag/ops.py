@@ -17,27 +17,42 @@ kernel):
 Nothing here catches a failure and falls back.  `embedding_bag.launches`
 counts kernel launches (a plain integer); `kernel.py` adds one where it
 launches.
+
+`meta` tables (an explicit choice: a dry run that counts, `launch.dryrun`)
+take the "auto" route's shapes and launch nothing.  Under an active
+`obs.cost.CostCounter` the forward counts itself once, from the
+shapes (`obs.cost.bag_cost`: each slot's row gathered), and its route is not
+counted again; the plain backward is counted op by op.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.obs.cost import bag_cost, kernel_cost
 
 __all__ = ["embedding_bag", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "ref")
 
 
+def _cost(tables, ids, weights):
+    flops, nbytes = bag_cost(tables, ids, weights)
+    return flops, tables.dtype, nbytes
+
+
 class _Bag(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tables, ids, weights, impl):
         ctx.save_for_backward(tables, ids, weights)
-        if impl == "ref":
-            return embedding_bag_ref(tables, ids, weights)
-        from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+        with kernel_cost("embedding_bag", lambda: _cost(tables, ids, weights)):
+            if impl == "meta":
+                return tables.new_empty((ids.shape[0], ids.shape[1], tables.shape[2]))
+            if impl == "ref":
+                return embedding_bag_ref(tables, ids, weights).contiguous()
+            from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 
-        return embedding_bag_cuda(tables, ids, weights)
+            return embedding_bag_cuda(tables, ids, weights)
 
     @staticmethod
     def backward(ctx, g):
@@ -75,7 +90,7 @@ def embedding_bag(
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; options: {'|'.join(IMPLS)}")
     if impl == "auto":
-        impl = "cuda" if tables.is_cuda else "ref"
+        impl = "meta" if tables.is_meta else "cuda" if tables.is_cuda else "ref"
     return _Bag.apply(tables, ids, weights, impl)
 
 

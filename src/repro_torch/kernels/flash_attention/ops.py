@@ -20,6 +20,14 @@ attention by autodiff), `ref.flash_attention_bwd_ref` for a CPU tensor.
 Nothing here catches a failure and falls back.  `flash_attention.launches`
 and `flash_attention_bwd.launches` count kernel launches (plain integers);
 `kernel.py` adds one where it launches.
+
+A `meta` `q` (an explicit choice: a dry run that counts, `launch.dryrun`)
+takes the "auto" route's shapes and launches nothing.  Under an active
+`obs.cost.CostCounter` the "auto"/"cuda" routes count each forward
+and each backward once, from the shapes (`obs.cost.attention_flops`, kept
+pairs of the causal mask; `kv_valid_len` is not read), and their route is
+not counted again; "ref" and "naive" are plain PyTorch the dispatcher
+counts op by op.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref,
     naive_attention_ref,
 )
+from repro_torch.obs.cost import attention_bwd_bytes, attention_flops, attention_fwd_bytes, kernel_cost
 
 __all__ = ["flash_attention", "flash_attention_bwd", "IMPLS"]
 
@@ -57,11 +66,19 @@ def flash_attention(
     if impl == "naive":
         return naive_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
     wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if impl == "ref" or (impl == "auto" and not q.is_cuda and not wants_grad):
+    if impl == "ref":
         return flash_attention_ref(
             q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
             block_q=block_q, block_k=block_k, skip_masked_blocks=skip_masked_blocks,
         )
+    if impl == "auto" and not q.is_cuda and not wants_grad:
+        with kernel_cost("flash_attention", lambda: _fwd_cost(q, k, causal, q_offset, False)):
+            if q.is_meta:
+                return q.new_empty(q.shape)
+            return flash_attention_ref(  # contiguous, as the kernel's: what follows then counts the same
+                q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
+                block_q=block_q, block_k=block_k, skip_masked_blocks=skip_masked_blocks,
+            ).contiguous()
     if kv_valid_len is not None:
         raise NotImplementedError(
             "kv_valid_len: the flash-attention kernel and its backward cover prefill, forward and "
@@ -73,10 +90,15 @@ def flash_attention(
         return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset), (block_q, block_k, skip_masked_blocks))
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
-    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    with kernel_cost("flash_attention", lambda: _fwd_cost(q, k, causal, q_offset, False)):
+        return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
 
 
 flash_attention.launches = 0
+
+
+def _fwd_cost(q, k, causal: bool, q_offset: int, with_lse: bool):
+    return attention_flops(q, k, causal, q_offset), q.dtype, attention_fwd_bytes(q, k, with_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -86,14 +108,19 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, blocks):
-        if q.is_cuda:
-            from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+        with kernel_cost("flash_attention", lambda: _fwd_cost(q, k, causal, q_offset, True)):
+            if q.is_meta:
+                out, lse = q.new_empty(q.shape), q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                                                              dtype=torch.float32)
+            elif q.is_cuda:
+                from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
-            out, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
-        else:
-            block_q, block_k, skip = blocks
-            out, lse = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, block_q=block_q,
-                                           block_k=block_k, skip_masked_blocks=skip, return_lse=True)
+                out, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+            else:
+                block_q, block_k, skip = blocks
+                out, lse = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, block_q=block_q,
+                                               block_k=block_k, skip_masked_blocks=skip, return_lse=True)
+                out, lse = out.contiguous(), lse.contiguous()
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.q_offset = causal, q_offset
         return out
@@ -121,12 +148,19 @@ def flash_attention_bwd(
     `dout`, from the forward's output `o` and log-sum-exp `lse` (B, Hq, Sq):
     the backward kernel for a CUDA `q` (its inputs made contiguous and of q's
     type first), `ref.flash_attention_bwd_ref` for a CPU `q`."""
-    if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=causal, q_offset=q_offset)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    def cost():
+        return 2.5 * attention_flops(q, k, causal, q_offset), q.dtype, attention_bwd_bytes(q, k)
 
-    q, k, v, o, dout = (t.to(q.dtype).contiguous() for t in (q, k, v, o, dout))
-    return flash_attention_bwd_cuda(q, k, v, o, dout, lse.contiguous(), causal=causal, q_offset=q_offset)
+    with kernel_cost("flash_attention_bwd", cost):
+        if q.is_meta:
+            return q.new_empty(q.shape), k.new_empty(k.shape, dtype=q.dtype), v.new_empty(v.shape, dtype=q.dtype)
+        if not q.is_cuda:
+            return tuple(t.contiguous() for t in flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=causal,
+                                                                         q_offset=q_offset))
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+
+        q, k, v, o, dout = (t.to(q.dtype).contiguous() for t in (q, k, v, o, dout))
+        return flash_attention_bwd_cuda(q, k, v, o, dout, lse.contiguous(), causal=causal, q_offset=q_offset)
 
 
 flash_attention_bwd.launches = 0

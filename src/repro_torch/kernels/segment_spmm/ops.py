@@ -10,7 +10,12 @@ TPU kernel had no backward; the reference differentiates
 `jax.ops.segment_sum` by autodiff.
 
 Dispatch rule: a CUDA tensor goes to the CUDA kernel, or raises; a CPU tensor
-goes to the plain version.  Nothing here catches a failure and falls back.
+goes to the plain version; a `meta` tensor (an explicit choice: a dry run
+that counts, `launch.dryrun`) gets an output of the right shape and launches
+nothing.  Nothing here catches a failure and falls back.  Under an active
+`obs.cost.CostCounter` each reduce (forward or backward) and each
+one-bucket call counts itself once, from the ELL's shapes
+(`obs.cost.ell_reduce_cost`), and its route is not counted again.
 `ell_spmm.launches` and `segment_spmm.launches` count kernel launches (plain
 integers, the backward's launches included); `kernel.py` adds one where it
 launches.
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch.graph.structs import EllBlocks
 from repro_torch.kernels.segment_spmm.ref import ell_spmm_ref, segment_spmm_ref
+from repro_torch.obs.cost import ell_reduce_cost, kernel_cost
 
 __all__ = ["segment_spmm", "ell_spmm"]
 
@@ -42,7 +48,7 @@ def ell_spmm(
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; options: {'|'.join(IMPLS)}")
     if impl == "auto":
-        impl = "cuda" if x.is_cuda else "ref"
+        impl = "meta" if x.is_meta else "cuda" if x.is_cuda else "ref"
     if impl == "ref":
         return ell_spmm_ref(x, cols, wts)
     if torch.is_grad_enabled() and (x.requires_grad or (wts is not None and wts.requires_grad)):
@@ -50,9 +56,18 @@ def ell_spmm(
             "ell_spmm: the one-bucket CUDA kernel has no backward, and an input requires grad; "
             "use impl='ref' to differentiate, or segment_spmm over the whole ELL with its transpose"
         )
-    from repro_torch.kernels.segment_spmm.kernel import ell_spmm_cuda
+    r, w = cols.shape
+    d, item = x.shape[1], x.element_size()
 
-    return ell_spmm_cuda(x, cols, wts)
+    def cost():
+        return 2.0 * r * w * d, x.dtype, r * w * 4 * (2 if wts is not None else 1) + r * w * d * item + r * d * item
+
+    with kernel_cost("ell_spmm", cost):
+        if impl == "meta":
+            return x.new_empty((r, d))
+        from repro_torch.kernels.segment_spmm.kernel import ell_spmm_cuda
+
+        return ell_spmm_cuda(x, cols, wts)
 
 
 ell_spmm.launches = 0
@@ -99,12 +114,21 @@ segment_spmm.launches = 0
 
 def _reduce(x: torch.Tensor, ell: EllBlocks) -> torch.Tensor:
     """The whole reduce without autograd: the fused kernel for a CUDA `x`,
-    the plain reader of the flat layout for a CPU `x`."""
-    if not x.is_cuda:
-        return segment_spmm_ref(x, ell)
-    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
+    the plain reader of the flat layout for a CPU `x`, an empty (N, D) for
+    a `meta` `x`.  Counted here, once a reduce, on every route."""
+    with kernel_cost("segment_spmm", lambda: _cost(x, ell)):
+        if x.is_meta:
+            return x.new_empty(x.shape)
+        if not x.is_cuda:
+            return segment_spmm_ref(x, ell).contiguous()
+        from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
 
-    return segment_spmm_cuda(x, ell)
+        return segment_spmm_cuda(x, ell)
+
+
+def _cost(x: torch.Tensor, ell: EllBlocks) -> tuple[float, torch.dtype, int]:
+    flops, nbytes = ell_reduce_cost(x, ell)
+    return flops, x.dtype, nbytes
 
 
 class _SegmentSpmm(torch.autograd.Function):

@@ -1,1 +1,1 @@
-"""Launch drivers of the port (`serve`)."""
+"""Launch drivers of the port (`serve`, `train`, `mesh`) and its tooling (`roofline`, `dryrun`, `perf`, `report`)."""

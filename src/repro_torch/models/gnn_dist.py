@@ -18,8 +18,9 @@ cotangent to every engine.  The weights are the same on every engine: each
 engine reads them through `EngineMesh.enter`, so their gradients are the
 engines' partial gradients summed in engine order (one device: the same
 function; on "process_group" the whole gradient on every rank).
-`batch_specs_halo`, whose only consumer is the reference's dry-run, waits
-for that tooling (ROADMAP.md Queue A 10).
+`batch_specs_halo` is the plan-layout batch at a plan's sizes (`halo.
+plan_sizes`) as "meta" tensors of the reference's shapes and dtypes, which
+`launch.perf`'s "halo" variant counts.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from repro_torch.kernels.segment_spmm.ops import segment_spmm
 from repro_torch.models.gnn import GnnConfig, _mlp_apply
 from repro_torch.train.pytree import tree_map
 
-__all__ = ["pack_batch", "halo_ell", "shard_batch", "gin_forward_halo", "gin_halo_loss_fn"]
+__all__ = ["pack_batch", "batch_specs_halo", "halo_ell", "shard_batch", "gin_forward_halo", "gin_halo_loss_fn"]
 
 
 def pack_batch(plan: HaloPlan, x, labels, train_mask) -> dict:
@@ -54,6 +55,27 @@ def pack_batch(plan: HaloPlan, x, labels, train_mask) -> dict:
         "x": xb, "send_idx": plan.send_idx, "src_slot": plan.src_slot,
         "dst_slot": plan.dst_slot, "node_mask": ok, "labels": lb,
         "train_mask": tm,
+    }
+
+
+def batch_specs_halo(sizes: dict, d_feat: int, n_classes: int) -> dict:
+    """The plan-layout batch (P-leading arrays) of a plan of `sizes`
+    (`halo.plan_sizes`) as "meta" tensors of the reference's shapes and
+    dtypes (`n_classes` is the reference's unused label width)."""
+    pn, n_l, e_l, h = sizes["num_devices"], sizes["n_local"], sizes["e_local"], sizes["h_pair"]
+    f32, i32, b_ = torch.float32, torch.int32, torch.bool
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return {
+        "x": meta((pn, n_l, d_feat), f32),
+        "send_idx": meta((pn, pn, h), i32),
+        "src_slot": meta((pn, e_l), i32),
+        "dst_slot": meta((pn, e_l), i32),
+        "node_mask": meta((pn, n_l), b_),
+        "labels": meta((pn, n_l), i32),
+        "train_mask": meta((pn, n_l), b_),
     }
 
 

@@ -199,8 +199,8 @@ def _lookup_psum_model(cfg: DcnConfig, tables: torch.Tensor, ids: torch.Tensor, 
     part = part.view(*lead, bl, m_l, t, d).movedim(len(dp) + 1, len(dp)).movedim(len(dp), a)
     out = mesh.psum(part, "model")  # folded in engine order; a model axis of size 1
     if split:
-        for name in dp:
-            out = mesh.all_gather(out, name)  # every data row's bags, on every process
+        for i, name in enumerate(dp):
+            out = mesh.all_gather(out, name, held=tuple(dp[:i]))  # every data row's bags, on every process
     return out.reshape(-1, t, d)
 
 

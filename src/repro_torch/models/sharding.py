@@ -196,10 +196,12 @@ def unshard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     splits over)."""
     n = len(mesh.axis_names)
     used = {a for s in tuple(spec) if s is not None for a in ((s,) if isinstance(s, str) else s)}
+    gathered = ()
     for a in mesh.axis_names:
         i = mesh.axis_names.index(a)
         if a in used:
-            x = mesh.all_gather(x, a)
+            x = mesh.all_gather(x, a, held=gathered)
+            gathered += (a,)
         else:
             x = x.narrow(i, 0, 1)  # replicated: every engine along it holds the same
     block = x.shape[n:]
@@ -231,8 +233,8 @@ def gather_dim(mesh, t: torch.Tensor, axes: tuple[str, ...], dim: int) -> torch.
     one reshape.  The transpose hands each engine its block of the
     cotangent."""
     n = len(mesh.axis_names)
-    for a in axes:
-        t = mesh.all_gather(t, a)
+    for i, a in enumerate(axes):
+        t = mesh.all_gather(t, a, held=tuple(axes[:i]))
     idx = [mesh.axis_index(a) for a in axes]
     others = [i for i in range(n) if i not in idx]
     order = others + list(range(n, dim)) + idx + list(range(dim, t.dim()))

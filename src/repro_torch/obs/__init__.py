@@ -3,8 +3,10 @@
 See `repro_torch.obs.trace` for the clock/determinism contract,
 `repro_torch.obs.metrics` for the comparable/non_comparable namespace split,
 `repro_torch.obs.recorder` for the Perfetto counter-track capture of
-per-window NoC state, and `repro_torch.obs.validate` for the zero-dependency
-check of obs output files against the committed `schemas/`.
+per-window NoC state, `repro_torch.obs.validate` for the zero-dependency
+check of obs output files against the committed `schemas/`, and
+`repro_torch.obs.cost` for the op counter the kernels and the mesh count
+themselves through (`launch.roofline` sets its totals against a device).
 """
 from __future__ import annotations
 

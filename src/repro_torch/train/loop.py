@@ -70,7 +70,10 @@ def make_train_step(
         for p in leaves:
             p.requires_grad_(True)
         loss = loss_fn(state.params, batch)
-        grads = tree_unflatten(state.params, torch.autograd.grad(loss, leaves))
+        # a leaf the loss does not read (graphcast's output MLP has no final norm) gets a zero gradient, as
+        # jax.grad gives it, and AdamW then decays it only
+        grads = tree_unflatten(state.params, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                                 materialize_grads=True))
         residual = state.compress_residual
         if compress:
             grads, new_res = optim_lib.int8_compress(grads, optim_lib.Int8State(residual))

@@ -76,9 +76,11 @@ def _leaf_norm(g: torch.Tensor, mesh, spec) -> torch.Tensor:
     split = {a for part in spec if part is not None for a in ((part,) if isinstance(part, str) else part)}
     blocks = torch.stack([torch.linalg.vector_norm(b.float()) for b in g.reshape(*g.shape[:n], -1).flatten(0, n - 1)])
     blocks = blocks.view(g.shape[:n])
+    gathered = ()
     for axis in mesh.axis_names:
         if axis in split:
-            blocks = mesh.all_gather(blocks, axis)
+            blocks = mesh.all_gather(blocks, axis, held=gathered)
+            gathered += (axis,)
     return torch.linalg.vector_norm(blocks.reshape(-1))
 
 

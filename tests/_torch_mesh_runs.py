@@ -3,7 +3,9 @@
 `tests/test_torch_recsys_psum.py`, `tests/test_torch_transformer_tp_serve.py`,
 `tests/test_torch_moe_tp_serve.py` and `tests/test_torch_moe_fsdp.py` (the
 `dense_tp_serve`, `moe_tp_serve` and `moe_fsdp` jobs: logits, and each
-rank's KV cache block; `moe_fsdp` also one training step) and their
+rank's KV cache block; `moe_fsdp` also one training step),
+`tests/test_torch_dryrun.py` (the `counted` job: the collectives a
+`obs.cost.CostCounter` counts) and their
 training counterparts (`tests/test_torch_{halo,moe_ep,recsys_psum}_train.py`
 and `tests/test_torch_transformer_tp.py`, the `*_train` jobs:
 every gradient and the params after one AdamW step, by leaf path; a rank
@@ -462,12 +464,47 @@ def _whole_stacks_ffn(mesh, rng) -> dict:
     return {"ffn_whole/out": out.detach().numpy(), **{f"ffn_whole/grad/{k}": g.numpy() for k, g in zip(keys, grads)}}
 
 
+def counted_runs(mesh) -> dict:
+    """The collectives `obs.cost.CostCounter` counts on this process
+    (one engine's link bytes by op kind, and every call's (kind, group,
+    per-engine output bytes)) in a training step's loss and gradients of
+    `dense_tp_config` under tp_sp and fsdp and of the smoke olmoe-1b-7b with
+    EP (its all-to-alls and their transposes), and in a prefill of 8 rows
+    under tp_sp: a gloo rank counts what the stacked mesh counts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.obs.cost import _COLLECTIVES, CostCounter
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.pytree import tree_leaves
+
+    rng = np.random.default_rng(23)
+    toks = torch.from_numpy(rng.integers(0, 128, (8, 16)))
+    olmoe = get_arch("olmoe-1b-7b").smoke_config()
+    olmoe = dataclasses.replace(olmoe, vocab=128, moe=dataclasses.replace(olmoe.moe, impl="ep_shardmap"))
+    out = {}
+    for strategy in ("tp_sp", "fsdp", "olmoe_ep"):
+        cfg = olmoe if strategy == "olmoe_ep" else dense_tp_config(strategy)
+        params = tfm.shard_params(tfm.init_params(cfg, 1, device="cpu"), cfg, mesh)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        with CostCounter() as c:
+            torch.autograd.grad(tfm.loss_fn(params, {"tokens": toks, "labels": toks}, cfg, mesh=mesh), leaves)
+        if strategy == "tp_sp":
+            cache = tfm.init_kv_cache(cfg, 8, 32, dtype=torch.float32, device="cpu", mesh=mesh)
+            with torch.no_grad(), c:
+                tfm.prefill(params, toks, cache, cfg, mesh=mesh)
+        out[f"{strategy}/coll"] = np.array([c.coll[k] for k in _COLLECTIVES])
+        out[f"{strategy}/calls"] = np.array([(_COLLECTIVES.index(k), g, b) for k, g, b in c.coll_calls])
+    return out
+
+
 JOBS = {"engine": engine_runs, "halo": halo_runs, "mesh2d": mesh2d_runs, "moe_ep": moe_ep_runs,
         "recsys_psum": recsys_psum_runs, "halo_train": halo_train_runs, "moe_ep_train": moe_ep_train_runs,
         "recsys_psum_train": recsys_psum_train_runs, "dense_tp_train": dense_tp_train_runs,
-        "dense_tp_serve": dense_tp_serve_runs, "moe_tp_serve": moe_tp_serve_runs, "moe_fsdp": moe_fsdp_runs}
+        "dense_tp_serve": dense_tp_serve_runs, "moe_tp_serve": moe_tp_serve_runs, "moe_fsdp": moe_fsdp_runs,
+        "counted": counted_runs}
 JOBS_2D = ("mesh2d", "moe_ep", "recsys_psum", "moe_ep_train", "recsys_psum_train", "dense_tp_train",
-           "dense_tp_serve", "moe_tp_serve", "moe_fsdp")
+           "dense_tp_serve", "moe_tp_serve", "moe_fsdp", "counted")
 
 
 def make_job_mesh(job: str, backend: str = "process_group"):

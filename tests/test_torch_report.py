@@ -78,7 +78,7 @@ def test_report_writer_outputs_both_files(tmp_path, mini_sweep):
     text = open(md).read()
     for section in ("## §Calibration", "## §Dry-run", "## §Roofline", "## §Perf", "## Fig. 5", "## Fig. 7"):
         assert section in text, section
-    assert "ROADMAP.md Queue A 10" in text  # no dry-run records of the port's own
+    assert "`python -m repro_torch.launch.dryrun" in text  # no dry-run records here: where they come from
     payload = json.load(open(js))
     assert payload["records"] and payload["comparisons"]
     assert payload["grid"]["name"] == "mini" and payload["backend"] == "torch"
