@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen paths, each driven with its kernels' launch counts set to 0 just
+Fourteen paths, each driven with its kernels' launch counts set to 0 just
 before and read just after (the paper pipeline once more through its CLI):
 
 * the paper pipeline of `repro_torch` (R-MAT graph → vertex-program trace →
@@ -135,6 +135,15 @@ before and read just after (the paper pipeline once more through its CLI):
   plain per-engine loop; NCCL at world size 1; its kernel is
   `flash_attention` (once a layer a prefill, every model engine's 2 of 16
   heads folded into one launch).
+* the example twins as their users run them (`examples/torch_*.py`, each
+  `main` called in process): the quickstart's PageRank trace and mapping on
+  the card against its own run on the CPU, continuous batching of 10
+  requests over llama3.2-3b's smoke model, the ~100M-param LM (12 layers,
+  d_model 768) trained 40 steps, checkpointed and resumed to 50, its MoE
+  form 20 steps, and the distributed and expert-placement twins; its
+  kernels are `segment_spmm` (one launch a PageRank iteration),
+  `flash_attention` (every prefill layer, twice a layer a training step)
+  and `flash_attention_bwd` (once a layer a training step);
 * the cost model (`launch.roofline`, `launch.perf.measure_cell`): three
   cells of the dry run on one device at a stated cut — llama3.2-3b
   `train_4k` at batch 8 × 128 (baseline and `bf16params`), dcn-v2
@@ -192,15 +201,17 @@ Phases, one JSON line each:
              and stage split a grid, one `segment_spmm` launch a PageRank
              iteration, `--check` clean on the port's EXPERIMENTS.md and
              BENCH_sweep.json, the paper records equal to the committed ones
-  attention  `flash_attention` against its plain version (test shapes, f32
-             and bf16, and the serve path's shapes; two runs bit-equal), its
+  attention  `flash_attention` against its plain version (test shapes, the
+             examples phase's call sites, f32 and bf16, and the serve path's
+             shapes; two runs bit-equal), its
              time and TFLOP/s at every path shape beside the operation bound
              and `scaled_dot_product_attention` (call and CUDA-graph
              replay), and the bf16 kernel's registers and shared memory;
              the forward's output and log-sum-exp against the plain
              forward's, and `flash_attention_bwd` on the kernel's forward
              against `flash_attention_bwd_ref` on the plain forward (test
-             shapes, olmoe-1b-7b's training shape among them, f32 and
+             shapes, olmoe-1b-7b's and torch_train_lm_e2e's training
+             shapes among them, f32 and
              bf16, offsets, rows that see no key, the training and serve
              shapes; two runs bit-equal) and its time at llama's and
              olmoe's training shapes and the serve shape beside its bound,
@@ -329,6 +340,19 @@ Phases, one JSON line each:
              prefill and decode steps over NCCL at world size 1 bit-equal to
              stacked; the attention kernels at the fsdp per-engine training
              shape against their plain versions, bounds and SDPA
+  examples   the example twins: torch_quickstart's lines on the card equal
+             to its --device cpu run's and one `segment_spmm` launch a
+             PageRank iteration; torch_serve_continuous_batching's 10
+             requests drained (12 tokens each or EOS) with the tokens of its
+             --device cpu run, no slot idle while a request waited, one
+             `flash_attention` launch a prefill layer (the attention phase
+             holds both attention kernels at these twins' shapes);
+             torch_train_lm_e2e at --width 768 --layers 12 for 40 steps
+             then resumed to 50 (`[resume] restored step 40`), and --moe
+             for 20: losses finite and falling, `flash_attention` and
+             `flash_attention_bwd` launched; the distributed and
+             expert-placement twins; each twin's seconds, launches and
+             lines, the phase within 60 s
   roofline   the cost model of `launch.roofline` against the card
              (`launch.perf.measure_cell`): llama3.2-3b train_4k at batch 8
              × 128 (baseline and bf16params), dcn-v2 serve_bulk at 262,144
@@ -353,7 +377,8 @@ backward at the tp_sp per-engine shape; the forward's
 at the tp_sp per-engine prefill shape; `flash_attention.tp_ep_prefill`: the
 forward at olmoe's per-engine prefill shape under TP + EP; the attention
 rows' `launches_mesh_moe_fsdp`, and `flash_attention.fsdp_ep`: the forward
-and the backward at olmoe's per-engine training shape under "fsdp"),
+and the backward at olmoe's per-engine training shape under "fsdp";
+`launches_examples` on ell_spmm and both attention rows),
 the card's name and
 power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -370,6 +395,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import statistics
 import sys
 import time
@@ -404,21 +430,28 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of an fp32 sum
 KERNEL_SOURCE = "src/repro_torch/csrc/ell_spmm.cu"
 KERNEL_REPLACES = "src/repro/kernels/segment_spmm/kernel.py:51"
 
-# flash attention: tests/test_kernels.py:24-29 (B, Sq, Skv, Hq, Hkv, dh), and
-# the serve path's q (1, S, 24, 128), k/v (1, S, 8, 128) bf16 at these S
+# flash attention: tests/test_kernels.py:24-29 (B, Sq, Skv, Hq, Hkv, dh); the
+# examples phase's call sites: torch_serve_continuous_batching's prefills (its
+# shortest and longest prompt, 2 heads of 32) and torch_train_lm_e2e's forward at
+# 768 wide (12q/6kv of 64) and at --moe's default 256 (4q/2kv), batch 8, seq 256;
+# and the serve path's q (1, S, 24, 128), k/v (1, S, 8, 128) bf16 at these S
+EXAMPLES_SERVE_ATTN = [(1, 8, 8, 2, 2, 32), (1, 23, 23, 2, 2, 32)]
+EXAMPLES_TRAIN_ATTN = [(8, 256, 256, 12, 6, 64), (8, 256, 256, 4, 2, 64)]
 ATTN_TEST_SHAPES = [(2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32), (2, 96, 160, 4, 4, 64),
-                    (1, 200, 200, 6, 2, 128), (2, 1000, 1100, 16, 4, 64)]  # the last: ragged 128-row q tiles
+                    (1, 200, 200, 6, 2, 128), *EXAMPLES_SERVE_ATTN, *EXAMPLES_TRAIN_ATTN,
+                    (2, 1000, 1100, 16, 4, 64)]  # the last: ragged 128-row q tiles
 ATTN_PATH_S = (512, 2048, 3072)
 ATTN_TIMED_S = 2048
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:89"
-# the attention backward: (B, Sq, Skv, Hq, Hkv, dh) at G = 1, 3, 3, 4, 3, 1, every head
-# dim, ragged lengths, olmoe-1b-7b's training shape (G = 1 at dh 128), each causal
-# (q_offset = Skv - Sq) and not; then q_offset -40 (40 rows see no key) and 37; timed
-# at llama3.2-3b's and olmoe-1b-7b's training shapes (launch.train's batch 8, seq 128)
-# and at the serve path's S
+# the attention backward: (B, Sq, Skv, Hq, Hkv, dh) at G = 1, 3, 3, 4, 1, 2, 2, 3, every
+# head dim, ragged lengths, olmoe-1b-7b's training shape (G = 1 at dh 128),
+# torch_train_lm_e2e's two (the examples phase), each causal (q_offset = Skv - Sq)
+# and not; then q_offset -40 (40 rows see no key) and 37; timed at llama3.2-3b's and
+# olmoe-1b-7b's training shapes (launch.train's batch 8, seq 128) and at the serve path's S
 ATTN_BWD_TEST_SHAPES = [(2, 128, 128, 4, 4, 64), (1, 96, 160, 6, 2, 32), (2, 77, 77, 24, 8, 128),
-                        (1, 200, 328, 8, 2, 128), (8, 128, 128, 16, 16, 128), (2, 100, 90, 6, 2, 64)]
+                        (1, 200, 328, 8, 2, 128), (8, 128, 128, 16, 16, 128), *EXAMPLES_TRAIN_ATTN,
+                        (2, 100, 90, 6, 2, 64)]
 ATTN_BWD_OFFSETS = (-40, 37)
 ATTN_TRAIN_SHAPE = (8, 128, 24, 8, 128)  # (B, S, Hq, Hkv, dh)
 ATTN_MOE_TRAIN_SHAPE = (8, 128, 16, 16, 128)
@@ -5572,6 +5605,155 @@ def phase_mesh_moe_fsdp(device: torch.device, seed: int, smi: str | None, timer:
     return out, launches
 
 
+EXAMPLES_DIR = ROOT / "examples"
+EXAMPLES_TRAIN_FULL = ("--width", "768", "--layers", "12")  # the twin's documented ~100M-param size
+EXAMPLES_TRAIN_STEPS = (40, 50)  # the first call, then the resumed one
+EXAMPLES_MOE_STEPS = 20
+EXAMPLES_BUDGET_S = 60.0  # the phase's time on the card; above it the phase fails
+TRAIN_LOG = re.compile(r"^\[step (\d+)\] loss=(\S+) ")
+
+
+def example(name: str):
+    """The example twin `examples/<name>.py`, loaded by path as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(fn) -> dict:
+    """`fn()` under `counted`, its stdout captured: {"result", "lines",
+    "launches" (the kernels it launched), "seconds"}."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result, launches = counted(fn)
+    return {"result": result, "lines": buf.getvalue().splitlines(),
+            "launches": {k: v for k, v in launches.items() if v}, "seconds": time.perf_counter() - t0}
+
+
+def phase_examples(device: torch.device, smi: str | None) -> tuple[dict, dict]:
+    """The example twins as their users run them (`examples/torch_*.py`), each
+    loaded by path and its `main` called in process under `counted`:
+    torch_quickstart on the card against its own `--device cpu` run (every
+    line equal: hops, speedup, energy, iterations), one `segment_spmm` launch
+    an iteration; torch_serve_continuous_batching on the card against its own
+    `--device cpu` run (the same (uid, tokens) for every request), 10 requests
+    drained, each with 12 tokens or ended at EOS, no slot idle while a request
+    waited, `flash_attention` in every prefill; torch_train_lm_e2e at its documented
+    full size for 40 steps into a temporary directory, then resumed to 50
+    (`[resume] restored step 40`), the loss finite and falling between the
+    first and the last logged step, and `--moe` at its default width for 20
+    steps, each through `flash_attention` and `flash_attention_bwd`; then the
+    two twins of earlier slices at their defaults
+    (torch_distributed_graph_analytics; torch_moe_expert_placement, host
+    numpy with no `main`, through `runpy`).  The attention kernels at these
+    call sites' shapes are held against their plain versions in the
+    `attention` phase (EXAMPLES_SERVE_ATTN, EXAMPLES_TRAIN_ATTN).  The phase
+    must take at most EXAMPLES_BUDGET_S.  Returns the `examples` line and each kernel's launches
+    over the phase."""
+    import os
+    import runpy
+    import tempfile
+
+    t_phase = time.perf_counter()
+    twins: dict = {}
+
+    quick = example("torch_quickstart")
+    host = run_example(lambda: quick.main(["--device", "cpu"]))
+    card = run_example(quick.main)
+    check(card["lines"] == host["lines"], f"torch_quickstart: the card printed {card['lines']}, the CPU {host['lines']}")
+    iterations = int(re.search(r"converged in (\d+) iterations", "\n".join(card["lines"])).group(1))
+    check(card["launches"] == {"segment_spmm": iterations},
+          f"torch_quickstart: launches {card['launches']}, want one segment_spmm a PageRank iteration ({iterations})")
+    check(host["launches"] == {}, f"torch_quickstart --device cpu launched {host['launches']}")
+    twins["torch_quickstart"] = {**{k: card[k] for k in ("lines", "launches", "seconds")},
+                                 "cpu_seconds": host["seconds"], "lines_equal_cpu": True}
+
+    serve_mod = example("torch_serve_continuous_batching")
+    host = run_example(lambda: serve_mod.main(["--device", "cpu"]))
+    run = run_example(serve_mod.main)
+    engine, stats = run["result"]
+    done = engine.completed
+    served = [(r.uid, list(r.out_tokens)) for r in done]
+    on_cpu = [(r.uid, list(r.out_tokens)) for r in host["result"][0].completed]
+    check(served == on_cpu, f"torch_serve_continuous_batching: the card served {served}, the CPU {on_cpu}")
+    check(host["launches"] == {}, f"torch_serve_continuous_batching --device cpu launched {host['launches']}")
+    check(len(done) == serve_mod.REQUESTS and not engine.queue and all(a is None for a in engine.active),
+          f"torch_serve_continuous_batching: {len(done)} of {serve_mod.REQUESTS} requests drained")
+    check(all(len(r.out_tokens) == serve_mod.NEW_TOKENS or r.out_tokens[-1] == engine.eos_id for r in done),
+          f"torch_serve_continuous_batching: tokens a request {[len(r.out_tokens) for r in done]}")
+    check(stats["idle_steps"] == 0, f"torch_serve_continuous_batching: {stats['idle_steps']} steps with an idle slot "
+                                    "while requests waited")
+    prefills = serve_mod.serve_config().n_layers * serve_mod.REQUESTS  # one launch a layer a prefill
+    check(run["launches"] == {"flash_attention": prefills},
+          f"torch_serve_continuous_batching: launches {run['launches']}, want {prefills} flash_attention")
+    check("tok/s" in run["lines"][-1], f"torch_serve_continuous_batching: last line {run['lines'][-1]!r}")
+    twins["torch_serve_continuous_batching"] = {
+        **{k: run[k] for k in ("lines", "launches", "seconds")}, "tokens": stats["tokens"],
+        "tokens_a_request": [len(r.out_tokens) for r in done], "ended_at_eos": sum(
+            len(r.out_tokens) < serve_mod.NEW_TOKENS for r in done), "steps": stats["steps"],
+        "tok_s": stats["tokens"] / stats["seconds"], "idle_steps": stats["idle_steps"],
+        "tokens_equal_cpu": True, "cpu_seconds": host["seconds"]}
+    del engine, run, host
+
+    train = example("torch_train_lm_e2e")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for steps in EXAMPLES_TRAIN_STEPS:
+            runs.append(run_example(lambda: train.main([*EXAMPLES_TRAIN_FULL, "--steps", str(steps), "--ckpt-dir",
+                                                        os.path.join(tmp, "lm")])))
+        moe = run_example(lambda: train.main(["--moe", "--steps", str(EXAMPLES_MOE_STEPS), "--ckpt-dir",
+                                              os.path.join(tmp, "moe")]))
+    check(f"[resume] restored step {EXAMPLES_TRAIN_STEPS[0]}" in runs[1]["lines"],
+          f"torch_train_lm_e2e: the second call printed {runs[1]['lines']}")
+    for what, lines in (("lm", runs[0]["lines"] + runs[1]["lines"]), ("moe", moe["lines"])):
+        logged = [(int(m.group(1)), float(m.group(2))) for m in map(TRAIN_LOG.match, lines) if m]
+        check(len(logged) >= 2 and all(np.isfinite(v) for _, v in logged) and logged[-1][1] < logged[0][1],
+              f"torch_train_lm_e2e {what}: logged losses {logged}")
+    for what, r in (("lm", runs[0]), ("lm resumed", runs[1]), ("moe", moe)):
+        check(r["launches"].get("flash_attention", 0) > 0 and r["launches"].get("flash_attention_bwd", 0) > 0
+              and set(r["launches"]) == {"flash_attention", "flash_attention_bwd"},
+              f"torch_train_lm_e2e {what}: launches {r['launches']}")
+    twins["torch_train_lm_e2e"] = {
+        "argv": list(EXAMPLES_TRAIN_FULL), "steps": list(EXAMPLES_TRAIN_STEPS),
+        "lines": runs[0]["lines"] + runs[1]["lines"], "seconds": [r["seconds"] for r in runs],
+        "launches": {k: runs[0]["launches"][k] + runs[1]["launches"][k] for k in runs[0]["launches"]},
+        "moe": {"steps": EXAMPLES_MOE_STEPS, **{k: moe[k] for k in ("lines", "launches", "seconds")}}}
+    del runs, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dist = example("torch_distributed_graph_analytics")
+    run = run_example(dist.main)
+    check(run["launches"].get("segment_spmm", 0) > 0, f"torch_distributed_graph_analytics: launches {run['launches']}")
+    check(any(line.startswith("pagerank:") for line in run["lines"]),
+          f"torch_distributed_graph_analytics: printed {run['lines']}")
+    twins["torch_distributed_graph_analytics"] = {k: run[k] for k in ("lines", "launches", "seconds")}
+
+    def placement():
+        runpy.run_path(str(EXAMPLES_DIR / "torch_moe_expert_placement.py"), run_name="__main__")
+
+    run = run_example(placement)
+    check(run["launches"] == {} and run["lines"], f"torch_moe_expert_placement: launches {run['launches']}")
+    twins["torch_moe_expert_placement"] = {k: run[k] for k in ("lines", "launches", "seconds")}
+
+    launches: dict = {}
+    for t in twins.values():
+        for part in (t, t.get("moe", {})):
+            for k, v in part.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    check(seconds <= EXAMPLES_BUDGET_S, f"examples: the phase took {seconds:.1f} s, above {EXAMPLES_BUDGET_S} s")
+    out = {"twins": twins, "launches": launches, "card": smi, "phase_seconds": seconds}
+    say("examples", **out)
+    return out, launches
+
+
 ROOFLINE_CELLS = (("llama3.2-3b", "train_4k", None), ("llama3.2-3b", "train_4k", "bf16params"),
                   ("dcn-v2", "serve_bulk", None), ("gin-tu", "ogb_products", None))  # (arch, cell, variant)
 ROOFLINE_LM_CUT = {"batch": 8, "seq": 128}  # (b′)'s batch, at full width and depth
@@ -5722,6 +5904,9 @@ def main() -> int:
     moe_fsdp, moe_fsdp_launches = phase_mesh_moe_fsdp(device, args.seed, info["nvidia_smi"], timer)
     gc.collect()
     torch.cuda.empty_cache()
+    _, examples_launches = phase_examples(device, info["nvidia_smi"])
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_roofline(device, graph, args.seed, info["nvidia_smi"])
     del graph
     say("done", seconds=time.perf_counter() - t_all)
@@ -5740,6 +5925,7 @@ def main() -> int:
         "shape": "one PageRank reduce on amazon (every ELL bucket, PageRank weights) at D=1",
         "launches_gnn": gnn_launches, "launches_train": train_launches["segment_spmm"],
         "launches_distributed": dist_launches, "launches_mesh_train": train_mesh["segment_spmm"],
+        "launches_examples": examples_launches["segment_spmm"],
         "halo_transpose": {"shape": f"the transposed reduce of the halo GIN's backward on amazon over {DIST_ENGINES} "
                                     "stacked engines: the transpose of the extended rows' block-diagonal ELL, weights "
                                     "1, D=64, f32", **halo_site},
@@ -5784,6 +5970,7 @@ def main() -> int:
         "launches_mesh_dense_serve": serve_tp_launches,
         "launches_mesh_moe_fsdp": moe_fsdp_launches["olmoe"],
         "launches_mesh_moe_fsdp_train": moe_fsdp_launches["train"]["flash_attention"],
+        "launches_examples": examples_launches["flash_attention"],
     }, {
         "name": "flash_attention.tp", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": dense_launches["flash_attention"],
@@ -5851,6 +6038,7 @@ def main() -> int:
         "launches_mesh_train_qwen": train_mesh["flash_attention_bwd_qwen"],
         "launches_mesh_dense": dense_launches["flash_attention_bwd"],
         "launches_mesh_moe_fsdp": moe_fsdp_launches["train"]["flash_attention_bwd"],
+        "launches_examples": examples_launches["flash_attention_bwd"],
         "moe_train_shape": {"shape": "olmoe-1b-7b training attention: q/k/v (8, 128, 16, 128) bf16, causal",
                             **{k: attn["backward"]["timed"]["moe_train"][k] for k in (
                                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",

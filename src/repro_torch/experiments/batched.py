@@ -36,6 +36,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import parity_pair_torch
 from repro_torch.core.noc import Topology
 from repro_torch.core.placement import Placement
 from repro_torch.core.simulator import SimParams, SimResult
@@ -50,17 +51,6 @@ __all__ = [
     "batched_weighted_hops",
     "resolve_backend",
 ]
-
-# Serial counterpart of each stacked function (the pairing the reference
-# package keeps in a decorator registry): stacked → (serial, contract).
-PARITY_PAIRS = {
-    "simulate_batch": (
-        "repro_torch.core.simulator.simulate",
-        "equal per config; total_bytes, byte_hops and peak link load bit-equal "
-        "on integer-byte traffic, derived scalars to float64 rounding",
-    ),
-}
-
 
 def routing_operator(topology: Topology):
     """(num_links, N·N) sparse CSR operator mapping a router-space bytes
@@ -239,6 +229,15 @@ def _contract_torch(stack: np.ndarray, dist: np.ndarray, routing, device: torch.
     return total.cpu().numpy(), bh.cpu().numpy(), peak
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.simulator.simulate",
+    kind="rel",
+    tol=1e-12,
+    note="equal per config (same routing model via `Topology.route_links`); "
+    "total_bytes, byte_hops and the peak link load bit-equal on integer-byte "
+    "traffic, the rest within 1e-12 relative on both backends "
+    "(tests/test_torch_batched.py)",
+)
 def simulate_batch(
     traffics: list[TrafficMatrix | SparseTraffic],
     placements: list[Placement],

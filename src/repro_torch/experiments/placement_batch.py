@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis.registry import parity_pair_torch
 
 from repro_torch.core.noc import Topology
 from repro_torch.core.partition import Partition
@@ -104,19 +105,6 @@ __all__ = [
     "BATCH_SEARCH_METHODS",
     "BATCH_CONSTRUCT_METHODS",
 ]
-
-# Serial counterpart of each stacked function (the pairing the reference
-# package keeps in a decorator registry): stacked → (serial, contract).  The
-# numpy backends are bit-identical per config; the torch backends equal them
-# on integer-byte weights.
-PARITY_PAIRS = {
-    "greedy_construct_batch": ("repro_torch.core.placement.greedy_placement", "bit"),
-    "torus_construct_batch": ("repro_torch.core.placement.torus_quad_placement", "bit"),
-    "sparse_weighted_hops_batch": ("repro_torch.core.placement.sparse_weighted_hops", "bit"),
-    "swap_delta_pairs_batch": ("repro_torch.core.placement.swap_delta_pairs", "bit"),
-    "batch_descend": ("repro_torch.core.placement.two_opt_best_move", "bit"),
-    "repair_batch": ("repro_torch.faults.repair.repair_descend", "bit"),
-}
 
 # Methods the batched engine searches; everything else (random, columnar, the
 # exact MILP) goes through the serial `place` reference path.
@@ -268,6 +256,13 @@ def _greedy_construct_torch(
     return placed_site.cpu().numpy()
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.placement.greedy_placement",
+    kind="bit",
+    note="same summation trees, same argmax/argmin tie-breaks, same seeded-RNG "
+    "fallback stream per config on both backends "
+    "(tests/test_torch_placement_batch.py)",
+)
 def greedy_construct_batch(
     weights: list[np.ndarray] | np.ndarray,
     topologies: list[Topology],
@@ -338,6 +333,13 @@ def _torus_construct_torch(
     return site.cpu().numpy()
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.placement.torus_quad_placement",
+    kind="bit",
+    note="same `part_traffic_weights` reduction, same stable hub argsort, same "
+    "`torus_cell_site_table` geometry (torus_columnar configs against "
+    "`torus_columnar_placement` the same way)",
+)
 def torus_construct_batch(
     weights: list[np.ndarray] | np.ndarray,
     topologies: list[Topology],
@@ -404,6 +406,12 @@ def _pad_coo(
     return rows, cols, vals
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.placement.sparse_weighted_hops",
+    kind="bit",
+    note="same gather + product-sum association per config, float64 on both "
+    "backends",
+)
 def sparse_weighted_hops_batch(
     coos: list[tuple[np.ndarray, np.ndarray, np.ndarray]],
     sites: list[np.ndarray] | np.ndarray,
@@ -450,6 +458,12 @@ def _pair_deltas_torch(w, d, sites, pi, pj):
     return a_ij + a_ji + 2.0 * w[cidx, pi, pj] * dij - diag.gather(1, pi) - diag.gather(1, pj)
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.placement.swap_delta_pairs",
+    kind="bit",
+    note="per-pair H deltas bit-equal on both backends (padded no-op pairs carry "
+    "zero delta and cannot win the argmin)",
+)
 def swap_delta_pairs_batch(
     weights: list[np.ndarray],
     topologies: list[Topology],
@@ -688,6 +702,14 @@ def _descend_torch(
 # ---------------------------------------------------------------------------
 
 
+@parity_pair_torch(
+    serial="repro_torch.core.placement.two_opt_best_move",
+    kind="bit",
+    note="bit-identical move sequence per config on both backends (shared "
+    "`swap_delta_matrix`/`move_delta_matrix`, first-minimum argmin "
+    "tie-break, `BEST_MOVE_TOL` convergence); sites and steps equal "
+    "repro's numpy backend",
+)
 def batch_descend(
     weights: list[np.ndarray] | np.ndarray,
     topologies: list[Topology],
@@ -728,6 +750,13 @@ def batch_descend(
     return list(out), stats
 
 
+@parity_pair_torch(
+    serial="repro_torch.faults.repair.repair_descend",
+    kind="bit",
+    note="replays the serial bounded repair descent bit for bit on integer-byte "
+    "weights — degraded distances, dead tiles masked via `blocked=` "
+    "(tests/test_torch_faults.py, tests/test_torch_placement_batch.py)",
+)
 def repair_batch(
     weights: list[np.ndarray] | np.ndarray,
     dists: list[np.ndarray] | np.ndarray,
@@ -791,7 +820,7 @@ def _perturbed(init: np.ndarray, topology: Topology, *, seed) -> np.ndarray:
     return site
 
 
-def place_batch(
+def place_batch(  # repro-torch-lint: disable=RPL006 front-end dispatcher, not a kernel: every engine it routes to (greedy/torus construction, batch_descend) carries its own @parity_pair_torch
     traffics: list[TrafficMatrix],
     partitions: list[Partition],
     topologies: list[Topology],

@@ -40,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import parity_pair_torch
 from repro_torch.core.placement import Placement
 from repro_torch.core.simulator import SimParams
 from repro_torch.core.traffic import TrafficMatrix
@@ -205,18 +206,14 @@ def _apply_redistribution(carry: np.ndarray, plans: list) -> np.ndarray:
     return out
 
 
-# Serial counterpart of each stacked function (the pairing the reference
-# package keeps in a decorator registry): stacked → (serial, contract).
-PARITY_PAIRS = {
-    "degraded_batch": (
-        "repro_torch.nocsim.batch.contended_batch",
-        "an empty `FaultSet` reproduces the pristine contended arm "
-        "bit-identically on both backends (and the degraded numpy↔torch "
-        "parity stays within the 1e-6 gate, measured per faults sweep)",
-    ),
-}
-
-
+@parity_pair_torch(
+    serial="repro_torch.nocsim.batch.contended_batch",
+    kind="bit",
+    note="an empty `FaultSet` reproduces the pristine contended arm "
+    "bit-identically on both backends (and the degraded numpy↔torch parity "
+    "stays within the 1e-6 gate, measured per faults sweep; "
+    "tests/test_torch_faults.py)",
+)
 def degraded_batch(
     traffics: list[TrafficMatrix],
     placements: list[Placement],

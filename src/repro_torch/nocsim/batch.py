@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import parity_pair_torch
 from repro_torch.core.placement import Placement
 from repro_torch.core.simulator import SimParams
 from repro_torch.core.traffic import TrafficMatrix
@@ -63,18 +64,6 @@ DEFAULT_WINDOW_CHUNK = 64
 # The numpy↔torch agreement contract on contended T_network, asserted per
 # contention sweep.
 PARITY_RTOL = 1e-6
-
-# Serial counterpart of each stacked function (the pairing the reference
-# package keeps in a decorator registry): stacked → (serial, contract).
-PARITY_PAIRS = {
-    "contended_batch": (
-        "repro_torch.nocsim.model.simulate_contended",
-        "`simulate_contended` is a 1-config call into the same float64 numpy "
-        "stepper (IS the reference); the torch open arm equals it bit for bit, "
-        "the credit arm within 1e-9 relative (einsum order)",
-    ),
-}
-
 
 def _step_numpy(
     inj: np.ndarray, backlog0: np.ndarray | None = None
@@ -206,6 +195,14 @@ def stacked_open_program(schedules: list[ConfigSchedule], windows: int) -> np.nd
     return inj
 
 
+@parity_pair_torch(
+    serial="repro_torch.nocsim.model.simulate_contended",
+    kind="rel",
+    tol=1e-9,
+    note="`simulate_contended` is a 1-config call into the same float64 numpy "
+    "stepper (IS the reference); the torch open arm equals it bit for bit, the "
+    "credit arm within 1e-9 relative (einsum order; tests/test_torch_nocsim.py)",
+)
 def contended_batch(
     traffics: list[TrafficMatrix],
     placements: list[Placement],
